@@ -1,0 +1,317 @@
+"""Call orchestrator: count -> map -> select -> call -> write, per sample.
+
+Counterpart of `bronko_tpu/call/engine.py`, as a lean, sequential,
+single-device driver of the main path:
+
+  1. the native C++ counter counts the read k-mers on the host (paired
+     mates are counted separately and concatenated into one stream, as the
+     reference's two map_kmers passes into shared pileups, call.rs:301-320);
+  2. the k-mers go to the device in batches of cfg.batch_size;
+  3. pass 1 (ops/map.tally_save) tallies perfect/variant/unique k-mers per
+     genome; the tallies and the pass-2 walk lengths come back in one copy;
+  4. the host picks the best genome (pick_best_genome, f64, first maximum);
+  5. pass 2 (ops/map.pileup_from_saved) builds the selected genome's
+     int32 pileup, which comes back in one copy;
+  6. the host runs the noise scan, the f64 filter cascade and the writers
+     (bronko_tpu.call.*).
+
+Batching cannot change a result: tallies are sums, the pileup sums and
+maxima. Each sample is isolated: a failure is logged and the run goes on.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import os
+import subprocess
+import time
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from bronko_tpu.call.noise import baseline_noise
+from bronko_tpu.call.outputs import (
+    SampleSummary, write_alignments, write_overview, write_pileup, write_vcf,
+)
+from bronko_tpu.call.variants import CallStats, VCFRecord, call_variants_for_seq
+from bronko_tpu.config import CallConfig
+from bronko_tpu.consts import KMER_COUNT_CAP
+from bronko_tpu.index.model import BronkoIndex
+from bronko_tpu.io import native
+from bronko_tpu_torch.index.layout import DeviceIndex, unsupported_reason
+from bronko_tpu_torch.ops.codec import from_u64
+from bronko_tpu_torch.ops.map import (
+    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
+    pileup_from_saved, tally_save,
+)
+
+log = logging.getLogger("bronko")
+
+STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
+
+
+@dataclass
+class CountStats:
+    total_reads: int = 0
+    total_kmers: int = 0
+    unique_kmers: int = 0
+    unique_counted_kmers: int = 0
+
+
+@dataclass
+class SampleResult:
+    summary: SampleSummary
+    records: list[VCFRecord]
+    tallies: np.ndarray          # (G, 3) int64 perfect / variant / unique
+    best: int                    # selected genome
+    pileup: np.ndarray           # (4, Tg+1, 4) int32, genome-local
+    reads: int                   # reads counted
+    seconds: dict[str, float]    # wall seconds by STAGES
+
+
+@functools.cache
+def native_lib():
+    """The native counter library (bronko_tpu/native), built once per
+    process. Its sources rely on headers that pull in <cstdio>, which GCC
+    13's standard headers no longer do, so it is built here with that
+    header forced in; the JAX package's loader then finds the library up
+    to date and loads it."""
+    cxx = f"{os.environ.get('CXX', 'g++')} -include cstdio"
+    proc = subprocess.run(["make", "-C", native._NATIVE_DIR, f"CXX={cxx}"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building the native library failed:\n{proc.stderr}")
+    lib = native.get_lib()
+    if lib is None:
+        raise RuntimeError("the native library could not be loaded")
+    return lib
+
+
+def count_sample(path: str, cfg: CallConfig, k: int) -> tuple[np.ndarray, np.ndarray, CountStats]:
+    """Count one FASTQ's k-mers with the native counter (KMC -ci/-cs
+    semantics) on cfg.threads threads. Returns (uint64 k-mers, int64
+    counts, stats)."""
+    native_lib()
+    kmers, counts, st = native.native_count_fastq(
+        path, k, cfg.min_kmers, KMER_COUNT_CAP, threads=max(1, cfg.threads))
+    return kmers, counts, CountStats(**st)
+
+
+def count_job(paths: list[str], cfg: CallConfig, k: int):
+    """Count one sample: single-end [r], or paired [r1, r2] concatenated."""
+    parts = [count_sample(p, cfg, k) for p in paths]
+    kmers = np.concatenate([p[0] for p in parts])
+    counts = np.concatenate([p[1] for p in parts])
+    cstats = CountStats(**{f.name: sum(getattr(p[2], f.name) for p in parts)
+                           for f in fields(CountStats)})
+    return kmers, counts, cstats
+
+
+def to_batches(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
+               device: torch.device):
+    """Host k-mers and counts -> list of (kmers int64, counts int32) device
+    batches of at most batch_size (one copy each way of the whole sample)."""
+    km = from_u64(kmers, device)
+    ct = torch.from_numpy(np.ascontiguousarray(counts, np.int32)).to(device)
+    return list(zip(km.split(batch_size), ct.split(batch_size)))
+
+
+def pick_best_genome(tallies: np.ndarray, dev: DeviceIndex) -> int | None:
+    """argmax of perfect/(2*genome_len), strictly-positive only
+    (call.rs:422-450): scores in f64, the first maximum wins."""
+    best, best_score = None, 0.0
+    for fid in range(dev.num_genomes):
+        glen = int(dev.genome_lens[fid])
+        if glen == 0:
+            continue
+        score = float(tallies[fid, 0]) / glen / 2.0
+        log.debug("genome %d: perfect=%d variant=%d unique=%d score=%.4f",
+                  fid, tallies[fid, 0], tallies[fid, 1], tallies[fid, 2], score)
+        if score > best_score:
+            best_score = score
+            best = fid
+    return best
+
+
+def _select_and_log(tallies: np.ndarray, index: BronkoIndex, dev: DeviceIndex,
+                    cstats: CountStats) -> tuple[int, tuple[int, int, int]]:
+    """Genome selection + the reference's mapping-stat log lines
+    (call.rs:238-248)."""
+    best = pick_best_genome(tallies, dev)
+    if best is None:
+        log.error("Unable to pick a best genome")
+        raise RuntimeError("Unable to pick a best genome")
+    n_perfect, n_variant, n_unique = (int(x) for x in tallies[best])
+    log.info("Selected a representative genome: %s", index.files[best].name)
+    n_unmapped = cstats.unique_counted_kmers - n_perfect - n_variant
+    log.info(
+        "Mapped %d/%d kmers perfectly (%d unique among refs), %d/%d had a variant, %d unmapped",
+        n_perfect, cstats.unique_counted_kmers, n_unique,
+        n_variant, cstats.unique_counted_kmers, n_unmapped,
+    )
+    if cstats.unique_counted_kmers and (n_variant + n_perfect) / cstats.unique_counted_kmers < 0.2:
+        log.warning(
+            "Percent of kmers found is very low for this reference, suggesting lack of a "
+            "representative reference, a bad sequencing run, contamination in sample, or some other issue"
+        )
+    return best, (n_perfect, n_variant, n_unmapped)
+
+
+def call_sample_variants(index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
+                         best: int, pileup: np.ndarray):
+    """Noise scan + filter cascade over every sequence of genome `best`,
+    from its genome-local host pileup."""
+    stats = CallStats()
+    records: list[VCFRecord] = []
+    seq_pileups: dict[str, tuple] = {}
+    file_meta = index.files[best]
+    slices = dev.slices_for_file(best)
+    file_base = min(s.offset for s in slices) if slices else 0
+    for sl in slices:
+        seq_meta = file_meta.sequences[sl.seq_id]
+        block = pileup[:, sl.offset - file_base:sl.offset - file_base + sl.length]
+        fwd_depth = block[PLANE_DEPTH_FWD]
+        rev_depth = block[PLANE_DEPTH_REV]
+        seq_pileups[sl.name] = (fwd_depth, rev_depth)
+        noise = baseline_noise(fwd_depth, rev_depth)
+        records.extend(call_variants_for_seq(
+            sl.name, seq_meta.seq,
+            fwd_depth, rev_depth, block[PLANE_CNT_FWD], block[PLANE_CNT_REV],
+            noise[:, 0],
+            k=cfg.kmer,
+            min_af=cfg.min_af,
+            filter_end_seq=not cfg.no_end_filter,
+            strand_filter=not cfg.no_strand_filter,
+            no_strand_balance_filter=cfg.no_strand_balance_filter,
+            strand_balance_ratio=cfg.strand_balance_ratio,
+            strand_odds_max=cfg.strand_odds_max,
+            n_per_strand=cfg.n_per_strand,
+            min_depth=cfg.min_depth,
+            min_variant_depth=cfg.min_variant_depth,
+            variant_multiplier=cfg.variant_multiplier,
+            stats=stats,
+        ))
+    log.info("Sample breadth of coverage: %s, depth of coverage: %s",
+             stats.breadth, stats.depth)
+    log.info("Called %d major variants, %d minor above maf = %s",
+             stats.num_major, stats.num_minor, cfg.min_af)
+    return records, stats, seq_pileups
+
+
+def _finish_one(display_path: str, index: BronkoIndex, dev: DeviceIndex,
+                cfg: CallConfig, best: int, pileup: np.ndarray,
+                tally_triple: tuple[int, int, int]):
+    """Host phase of one sample: call variants and write its outputs."""
+    records, stats, seq_pileups = call_sample_variants(index, dev, cfg, best, pileup)
+    if cfg.output_pileup:
+        write_pileup(cfg.output, display_path, index.files[best], seq_pileups)
+    write_vcf(cfg.output, display_path, records, index.files[best])
+    summary = SampleSummary(display_path, index.files[best].name, stats,
+                            *tally_triple)
+    return summary, records
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
+                   cfg: CallConfig) -> SampleResult:
+    """The whole main path for one sample (single-end [r] or paired
+    [r1, r2]); `seconds` holds each stage's wall time, the device synced at
+    every stage boundary."""
+    display = job[0]
+    t = [time.perf_counter()]
+    kmers, counts, cstats = count_job(job, cfg, index.k)
+    t.append(time.perf_counter())
+    log.info("%d reads counted from %s", cstats.total_reads, display)
+    log.info(
+        "%d unique kmers above %d count, %d total unique kmers, "
+        "%d total kmers (~%d basepairs)",
+        cstats.unique_counted_kmers, cfg.min_kmers, cstats.unique_kmers,
+        cstats.total_kmers, cstats.total_kmers * index.k,
+    )
+    if cfg.keep_kmer_counts:
+        from bronko_tpu.io.naming import clean_sample_id
+        from bronko_tpu.ops.codec import kmer_to_string
+
+        dump = os.path.join(cfg.output, clean_sample_id(display) + "_counts.txt")
+        with open(dump, "w") as fh:
+            for km, ct in zip(kmers.tolist(), counts.tolist()):
+                fh.write(f"{kmer_to_string(km, index.k)}\t{ct}\n")
+
+    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+    G = dev.num_genomes
+    if len(mcfg.positions) == 0:
+        kmers, counts = kmers[:0], counts[:0]  # no bucket survives the trim
+    batches = to_batches(kmers, counts, cfg.batch_size, dev.device)
+    _sync(dev.device)
+    t.append(time.perf_counter())
+
+    tallies_t, lanes_t, saved = tally_save(batches, dev, mcfg)
+    host = torch.cat([tallies_t.to(torch.int64).reshape(-1),
+                      lanes_t.reshape(-1)]).cpu().numpy()
+    tallies = host[:3 * G].reshape(G, 3)
+    lanes = host[3 * G:].reshape(-1, G)
+    log.info("Tallied %d kmers in %.2fs", kmers.shape[0], time.perf_counter() - t[-1])
+    best, triple = _select_and_log(tallies, index, dev, cstats)
+    t.append(time.perf_counter())
+
+    pileup_t = pileup_from_saved(batches, saved, lanes[:, best].tolist(),
+                                 dev.postings_local32, best, mcfg, dev.g_total_len)
+    _sync(dev.device)
+    log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
+    t.append(time.perf_counter())
+    pileup = pileup_t.cpu().numpy()
+    t.append(time.perf_counter())
+
+    summary, records = _finish_one(display, index, dev, cfg, best, pileup, triple)
+    t.append(time.perf_counter())
+    seconds = {s: t[i + 1] - t[i] for i, s in enumerate(STAGES)}
+    return SampleResult(summary, records, tallies, best, pileup,
+                        cstats.total_reads, seconds)
+
+
+def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex) -> list[SampleResult]:
+    """Per-sample pipeline driver: every -r file and every -1/-2 pair in
+    order, each isolated; then the overview and the alignment. Raises
+    SystemExit(1) when every sample failed. Returns the samples that
+    succeeded, in input order."""
+    reason = unsupported_reason(dev)
+    if reason is not None:
+        raise ValueError(f"unsupported index: {reason}; see ROADMAP.md")
+    os.makedirs(cfg.output, exist_ok=True)
+    jobs = [[p] for p in cfg.reads] + [
+        [r1, r2] for r1, r2 in zip(cfg.first_pairs, cfg.second_pairs)]
+    results: list[SampleResult] = []
+    failures: list[str] = []
+    for job in jobs:
+        label = job[0] if len(job) == 1 else f"{job[0]}, {job[1]}"
+        log.info("Processing %s", label)
+        try:
+            results.append(process_sample(job, index, dev, cfg))
+        except Exception:  # noqa: BLE001 — per-sample isolation
+            log.exception("Sample %s failed; continuing with remaining samples", label)
+            failures.append(job[0])
+
+    if failures and not results:
+        log.error("All samples failed")
+        raise SystemExit(1)
+    if failures:
+        log.warning("%d of %d samples processed; failed: %s",
+                    len(results), len(jobs), ", ".join(failures))
+    summaries = [r.summary for r in results]
+    log.info("Printing overview")
+    write_overview(cfg.output, summaries)
+    if not failures:
+        log.info("All samples processed successfully")
+    if cfg.output_alignment:
+        log.info("Building alignment(s)")
+        write_alignments(cfg.output, summaries,
+                         [(r.summary.filename, r.records) for r in results],
+                         index.files, log)
+    log.info("bronko complete!")
+    return results

@@ -1,0 +1,96 @@
+"""Kernels K1/K2 and the port's main path on a CUDA card, against the plain
+PyTorch versions on the same card and the CPU run. Skipped without a card;
+on one: python -m pytest tests/test_torch_cuda.py -m cuda"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from bronko_tpu.config import CallConfig  # noqa: E402
+from bronko_tpu.index.build import build_index  # noqa: E402
+from bronko_tpu.ops.buckets import filtered_bucket_positions  # noqa: E402
+from bronko_tpu_torch.call.engine import run_call  # noqa: E402
+from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from bronko_tpu_torch.ops import cuda_buckets as cb  # noqa: E402
+from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
+# plain module name (pytest puts tests/ on sys.path): an installed package
+# called `tests` can shadow this directory where the card is
+from make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _inputs(k, n, device, seed):
+    rng = np.random.default_rng(seed)
+    kmers = rng.integers(0, 1 << (2 * k), size=n, dtype=np.uint64)
+    if k == 31:  # the u64 wrap of the bucket hash
+        top = (np.uint64(1) << np.uint64(62)) - np.uint64(1)
+        kmers[:1024] = top - rng.integers(0, 1 << 20, size=1024, dtype=np.uint64)
+    counts = rng.integers(0, 1_000_000, size=n, dtype=np.int32)
+    return from_u64(kmers, device), torch.from_numpy(counts).to(device)
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_kernels_equal_plain_on_the_card(gpu, k):
+    kmers, counts = _inputs(k, 100_003, gpu, k)
+    before = dict(cb.LAUNCHES)
+    for positions in (tuple(filtered_bucket_positions(k, 2, False)), tuple(range(k))):
+        for got, want in zip(cb.bucket_queries(kmers, k, positions),
+                             cb.bucket_queries_plain(kmers, k, positions)):
+            assert torch.equal(got, want)
+    assert torch.equal(cb.fold_table(kmers, counts, k),
+                       cb.fold_table_plain(kmers, counts, k))
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bucket_queries"] == before["bucket_queries"] + 2
+    assert cb.LAUNCHES["fold_table"] == before["fold_table"] + 1
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    kmers, counts = _inputs(21, 64, gpu, 0)
+    with pytest.raises(ValueError):
+        cb.bucket_queries(kmers.to(torch.int32), 21, (2, 3))
+    with pytest.raises(ValueError):
+        cb.bucket_queries(kmers[::2], 21, (2, 3))
+    with pytest.raises(ValueError):
+        cb.bucket_queries(kmers, 21, (3, 2))
+    with pytest.raises(ValueError):
+        cb.fold_table(kmers, counts.to(torch.int64), 21)
+
+
+def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
+    rng = np.random.default_rng(41)
+    genomes = []
+    base = make_genome(rng, 1500)
+    for i in range(3):
+        g = bytearray(base)
+        for p in rng.integers(0, len(g), 8):
+            g[p] = b"ACGT"[rng.integers(4)]
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    reads, _ = make_sample(base, rng, read_len=90, depth=500,
+                           major_positions={600: 0.9}, error_rate=0.004)
+    fq = str(tmp_path / "s.fastq.gz")
+    write_fastq(fq, reads)
+    index = build_index(21, genomes)
+    results = {}
+    for name, device in (("cpu", torch.device("cpu")), ("gpu", gpu)):
+        cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),
+                         output_pileup=True, batch_size=4096)
+        (results[name],) = run_call(cfg, index, build_device_index(index, device))
+    assert results["gpu"].best == results["cpu"].best
+    np.testing.assert_array_equal(results["gpu"].tallies, results["cpu"].tallies)
+    np.testing.assert_array_equal(results["gpu"].pileup, results["cpu"].pileup)
+    for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+        assert open(tmp_path / "gpu" / f).read() == open(tmp_path / "cpu" / f).read()
+    assert os.path.getsize(tmp_path / "gpu" / "s.vcf") > 0

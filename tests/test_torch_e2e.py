@@ -1,0 +1,164 @@
+"""The port end to end on the CPU: its run_call against bronko_tpu's on the
+same inputs (every output file byte-equal), the golden sample of
+tests/test_golden.py, and the CLI's exit codes."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import bronko_tpu.call.engine as jax_engine  # noqa: E402
+import bronko_tpu.index.layout as jax_layout  # noqa: E402
+from bronko_tpu.config import CallConfig  # noqa: E402
+from bronko_tpu.index.build import build_index  # noqa: E402
+from bronko_tpu_torch import cli  # noqa: E402
+from bronko_tpu_torch.call.engine import run_call  # noqa: E402
+from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from tests import test_golden  # noqa: E402
+from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    """A 2-genome panel (a reference, and a strain of it in two contigs)
+    and two samples: one drawn from each genome."""
+    tmp = tmp_path_factory.mktemp("torch_e2e")
+    rng = np.random.default_rng(23)
+    genome = make_genome(rng, 1200)
+    strain = bytearray(genome)
+    for p in rng.integers(100, 1100, 12):
+        strain[p] = b"ACGT"[(b"ACGT".index(strain[p]) + 1) % 4]
+    strain = bytes(strain)
+    ref = str(tmp / "ref.fasta")
+    write_fasta(ref, "sref", genome)
+    strain_fa = str(tmp / "strain.fasta")
+    with open(strain_fa, "w") as fh:
+        fh.write(f">contig1\n{strain[:700].decode()}\n>contig2\n{strain[700:].decode()}\n")
+    samples = []
+    for i, (src, majors) in enumerate([(genome, {300: 0.92}), (strain, {500: 0.9})]):
+        reads, _ = make_sample(src, rng, read_len=80, depth=600, major_positions=majors,
+                               minor_positions={800: 0.15}, error_rate=0.004)
+        fq = str(tmp / f"samp{i}.fastq.gz")
+        write_fastq(fq, reads)
+        samples.append(fq)
+    return tmp, [ref, strain_fa], samples
+
+
+def _outputs(out):
+    return {f: open(os.path.join(out, f)).read() for f in sorted(os.listdir(out))}
+
+
+@pytest.mark.parametrize("case", ["single", "paired_pileup", "four_alignment"])
+def test_run_call_matches_jax(synth, case):
+    tmp, genomes, (fq0, fq1) = synth
+    kw = {
+        "single": dict(reads=[fq0]),
+        "paired_pileup": dict(first_pairs=[fq1], second_pairs=[fq0], output_pileup=True),
+        "four_alignment": dict(reads=[fq0, fq1, fq0], first_pairs=[fq0],
+                                second_pairs=[fq0], output_alignment=True),
+    }[case]
+    index = build_index(21, genomes)
+    outs = {}
+    for name, run, dev in (("jax", jax_engine.run_call, jax_layout.build_device_index(index)),
+                           ("torch", run_call, build_device_index(index, CPU))):
+        outs[name] = str(tmp / f"{case}_{name}")
+        cfg = CallConfig(genomes=genomes, output=outs[name], batch_size=2048,
+                         chunk_reads=4096, **kw)
+        run(cfg, index, dev)
+    want, got = _outputs(outs["jax"]), _outputs(outs["torch"])
+    assert sorted(got) == sorted(want)
+    assert any(f.endswith(".vcf") for f in got)
+    if case == "four_alignment":
+        assert any(f.endswith(".mfa") for f in got)
+    for f in want:
+        assert got[f] == want[f], f
+
+
+def test_golden_sample(tmp_path, monkeypatch):
+    """tests/test_golden.py's own pipeline, with the port in place of the
+    JAX engine and layout, reproduces tests/golden/."""
+    monkeypatch.setattr(jax_engine, "run_call", run_call)
+    monkeypatch.setattr(jax_layout, "build_device_index",
+                        lambda index: build_device_index(index, CPU))
+    vcf, overview = test_golden._produce(str(tmp_path))
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    assert vcf == open(os.path.join(golden, "gsample.vcf")).read()
+    assert overview == open(os.path.join(golden, "overview.tsv")).read()
+
+
+def _exit_code(argv) -> int:
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    return exc.value.code
+
+
+def test_cli_build_and_call_match_jax(synth, monkeypatch):
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    db = str(tmp / "cli_db")
+    assert cli.main(["build", "-g", *genomes, "-o", db]) == 0
+    out = str(tmp / "cli_out")
+    assert cli.main(["call", "-d", db + ".bkdb", "-r", fq0, "-o", out]) == 0
+    jout = str(tmp / "cli_jax")
+    index = build_index(21, genomes)
+    jax_engine.run_call(CallConfig(db=db + ".bkdb", reads=[fq0], output=jout),
+                        index, jax_layout.build_device_index(index))
+    assert _outputs(out) == _outputs(jout)
+
+
+@pytest.mark.parametrize("extra", [
+    ["-k", "20"],                               # validation: even k
+    ["--mesh", "2x1"],
+    ["--shard-samples"],
+    ["--counter", "device"],
+    ["--device-build", "on"],
+    ["--profile-dir", "prof"],
+    ["--coordinator", "localhost:1234", "--num-processes", "1", "--process-id", "0"],
+])
+def test_cli_refuses_with_exit_1(synth, monkeypatch, extra):
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    assert _exit_code(["call", "-g", genomes[0], "-r", fq0,
+                       "-o", str(tmp / "refused"), *extra]) == 1
+
+
+@pytest.mark.parametrize("platform", ["gpu", "tpu"])
+def test_cli_never_falls_back_to_the_cpu(synth, monkeypatch, platform):
+    """BRONKO_PLATFORM=gpu without a CUDA device, or a platform the port
+    has no device for, exits 1 before any work."""
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", platform)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp / f"nodevice_{platform}")
+    assert _exit_code(["call", "-g", genomes[0], "-r", fq0, "-o", out]) == 1
+    assert not os.path.exists(out)
+
+
+def test_cli_exit_codes_for_failed_samples(synth, monkeypatch):
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    missing = str(tmp / "missing.fastq.gz")
+    out = str(tmp / "partial")
+    assert _exit_code(["call", "-g", genomes[0], "-r", missing, fq0, "-o", out]) == 2
+    assert os.path.exists(os.path.join(out, "samp0.vcf"))
+    assert _exit_code(["call", "-g", genomes[0], "-r", missing,
+                       "-o", str(tmp / "allfail")]) == 1
+
+
+def test_cli_refuses_an_index_outside_the_slice(tmp_path, synth, monkeypatch):
+    """Nine genomes need the multi-word histogram: exit 1, not a silent
+    fallback."""
+    _, _, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    rng = np.random.default_rng(9)
+    genomes = []
+    for i in range(9):
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", make_genome(rng, 200))
+    assert _exit_code(["call", "-g", *genomes, "-r", fq0,
+                       "-o", str(tmp_path / "out")]) == 1
