@@ -3,9 +3,11 @@
 Counterpart of `bronko_tpu/call/engine.py`, as a lean, sequential,
 single-device driver of the main path:
 
-  1. the native C++ counter counts the read k-mers on the host (paired
-     mates are counted separately and concatenated into one stream, as the
-     reference's two map_kmers passes into shared pileups, call.rs:301-320);
+  1. the read k-mers are counted (cfg.counter): on the host by the native
+     C++ counter, or on the device by ops/count.py (window pack K3, sort,
+     merge); paired mates are counted separately and concatenated into one
+     stream, as the reference's two map_kmers passes into shared pileups
+     (call.rs:301-320);
   2. the k-mers go to the device in batches of cfg.batch_size;
   3. pass 1 (ops/map.tally_save) tallies perfect/variant/unique k-mers per
      genome; the tallies and the pass-2 walk lengths come back in one copy;
@@ -40,8 +42,10 @@ from bronko_tpu.config import CallConfig
 from bronko_tpu.consts import KMER_COUNT_CAP
 from bronko_tpu.index.model import BronkoIndex
 from bronko_tpu.io import native
+from bronko_tpu.io.fastq import read_fastq_chunks
 from bronko_tpu_torch.index.layout import DeviceIndex, unsupported_reason
 from bronko_tpu_torch.ops.codec import from_u64
+from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
     PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
     pileup_from_saved, tally_save,
@@ -50,14 +54,6 @@ from bronko_tpu_torch.ops.map import (
 log = logging.getLogger("bronko")
 
 STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
-
-
-@dataclass
-class CountStats:
-    total_reads: int = 0
-    total_kmers: int = 0
-    unique_kmers: int = 0
-    unique_counted_kmers: int = 0
 
 
 @dataclass
@@ -89,19 +85,62 @@ def native_lib():
     return lib
 
 
-def count_sample(path: str, cfg: CallConfig, k: int) -> tuple[np.ndarray, np.ndarray, CountStats]:
-    """Count one FASTQ's k-mers with the native counter (KMC -ci/-cs
-    semantics) on cfg.threads threads. Returns (uint64 k-mers, int64
-    counts, stats)."""
-    native_lib()
-    kmers, counts, st = native.native_count_fastq(
-        path, k, cfg.min_kmers, KMER_COUNT_CAP, threads=max(1, cfg.threads))
-    return kmers, counts, CountStats(**st)
+def count_sample(path: str, cfg: CallConfig, k: int,
+                 device: torch.device) -> tuple[np.ndarray, np.ndarray, CountStats]:
+    """Count one FASTQ's k-mers (KMC -ci/-cs semantics). Returns (ascending
+    uint64 k-mers, int64 counts, stats). cfg.counter: 'host' is the native
+    counter on cfg.threads threads; 'device' the device counter on
+    `device`; 'auto' the native counter when its library builds and loads,
+    else the device counter."""
+    if cfg.counter in ("auto", "host"):
+        try:
+            native_lib()
+        except RuntimeError as e:
+            if cfg.counter == "host":
+                raise
+            log.debug("host counter unavailable (%s); using the device counter", e)
+        else:
+            kmers, counts, st = native.native_count_fastq(
+                path, k, cfg.min_kmers, KMER_COUNT_CAP, threads=max(1, cfg.threads))
+            log.info("Counted %s with the host counter", path)
+            return kmers, counts, CountStats(**st)
+    out = _count_sample_device(path, cfg, k, device, *_read_chunks(path, cfg))
+    log.info("Counted %s with the device counter on %s", path, device)
+    return out
 
 
-def count_job(paths: list[str], cfg: CallConfig, k: int):
+def _read_chunks(path: str, cfg: CallConfig):
+    """(chunk iterator, row width): the native FASTQ reader's 512-wide
+    rows, or the Python parser's (width None) when the library is missing."""
+    try:
+        native_lib()
+    except RuntimeError:
+        return read_fastq_chunks(path, cfg.chunk_reads), None
+    return native.native_read_fastq_chunks(path, cfg.chunk_reads, max_len=512), 512
+
+
+def _count_sample_device(path: str, cfg: CallConfig, k: int, device: torch.device,
+                         chunks, native_width: int | None):
+    """Feed read chunks to the device counter, each trimmed to its reads and
+    to its longest read rounded up to 32 columns. Reads longer than the
+    native reader's rows restart the file on the Python parser."""
+    counter = KmerCounter(k, cfg.min_kmers, device=device)
+    for codes, lengths, n_reads in chunks:
+        max_len = int(lengths[:n_reads].max()) if n_reads else 0
+        if native_width is not None and max_len > native_width:
+            log.warning("reads longer than %d in %s; using Python parser",
+                        native_width, path)
+            return _count_sample_device(path, cfg, k, device,
+                                        read_fastq_chunks(path, cfg.chunk_reads), None)
+        width = min(-(-max(max_len, 1) // 32) * 32, codes.shape[1])
+        counter.add_chunk(codes[:n_reads, :width], lengths[:n_reads], n_reads)
+    kmers, counts = counter.finalize()
+    return kmers, counts, counter.stats
+
+
+def count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device):
     """Count one sample: single-end [r], or paired [r1, r2] concatenated."""
-    parts = [count_sample(p, cfg, k) for p in paths]
+    parts = [count_sample(p, cfg, k, device) for p in paths]
     kmers = np.concatenate([p[0] for p in parts])
     counts = np.concatenate([p[1] for p in parts])
     cstats = CountStats(**{f.name: sum(getattr(p[2], f.name) for p in parts)
@@ -225,7 +264,7 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
     every stage boundary."""
     display = job[0]
     t = [time.perf_counter()]
-    kmers, counts, cstats = count_job(job, cfg, index.k)
+    kmers, counts, cstats = count_job(job, cfg, index.k, dev.device)
     t.append(time.perf_counter())
     log.info("%d reads counted from %s", cstats.total_reads, display)
     log.info(

@@ -61,8 +61,6 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
         _refuse("--mesh")
     if cfg.shard_samples:
         _refuse("--shard-samples")
-    if cfg.counter == "device":
-        _refuse("--counter device")
     if cfg.device_build == "on":
         _refuse("--device-build on")
     if cfg.profile_dir:

@@ -1,6 +1,7 @@
 // Hopper kernels for the mapper's k-mer front end (pass 1 queries, pass 2
-// fold table), with a plain C launch interface loaded through ctypes by
-// bronko_tpu_torch/ops/cuda_buckets.py.
+// fold table), with a plain C launch interface, wrapped by
+// bronko_tpu_torch/ops/cuda_buckets.py and built and loaded with the
+// port's other kernels by ops/cuda_lib.py.
 //
 // K1 bucket_queries replaces bronko_tpu/ops/pallas_buckets.py
 //   bucket_queries_pallas / _bucket_kernel (+ _canonical_u32).

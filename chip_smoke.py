@@ -1,22 +1,30 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--warm N]
 
 Phases, one line each; any failure exits non-zero:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the port's kernels (bronko_tpu_torch/csrc) with nvcc;
-  3. kernels: K1 bucket_queries and K2 fold_table on the card against their
-     plain PyTorch versions on the same inputs (exact: torch.equal), at
-     k = 15, 21, 31, B = 1,000,003 k-mers with the k=31 wrap inputs, and
-     their median times from CUDA events;
-  4. main path: the bench fixture (4 synthetic 29,900 bp genomes, 300,000
-     x 150 bp reads, ~1,500x, seed 2024; cached in .smoke_cache/) through
-     the port's CLI entry: `build`, then `call -d -r --pileup` on the card,
-     with every kernel's launch count read around that run;
-  5. check: every planted major variant is a PASS row of the VCF, and the
+  3. kernels: each kernel on the card against its plain PyTorch version on
+     the same inputs (exact: torch.equal), with median times from CUDA
+     events: K1 bucket_queries and K2 fold_table at k = 15, 21, 31,
+     B = 1,000,003 k-mers with the k=31 wrap inputs; K3 pack_windows at
+     k = 15, 21, 31 on a chunk of 262,144 reads x 160 codes;
+  4. gather: the gather probe (K4 against its plain version at 2^21
+     indices into 2^20 entries), its launches read around the probe;
+  5. main: the bench fixture (4 synthetic 29,900 bp genomes, 300,000 x
+     150 bp reads, ~1,500x, seed 2024; cached in .smoke_cache/) through the
+     port's CLI entry: `build`, then `call -d -r --pileup` on the card with
+     the host counter, every kernel's launch count read around that run;
+  6. check: every planted major variant is a PASS row of the VCF, and the
      card's tallies, selected genome and int32 pileup equal the same
      pipeline run on the CPU (the plain versions);
-  6. the last stdout line: {"ok": true, "device": {...}}.
+  7. count: `call -d -r --pileup --counter device` on the card, launch
+     counts read around it: its k-mers, counts and stats, tallies, genome,
+     pileup and output files equal the host counter's on the card;
+  8. warm: N (default 1) more samples with each counter, in turns, with
+     their stage seconds;
+  9. the last stdout line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import sys
 # jax when it can; block it so this run provably needs nothing of JAX.
 sys.modules["jax"] = None
 
+import argparse  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -39,7 +48,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bronko_tpu_torch import cli  # noqa: E402
-from bronko_tpu_torch.ops import cuda_buckets  # noqa: E402
+from bronko_tpu_torch.call import engine  # noqa: E402
+from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 
@@ -52,11 +62,19 @@ N_READS = 300_000
 READ_LEN = 150
 KERNEL_B = 1_000_003  # a multiple of no block size
 KERNEL_KS = (15, 21, 31)
+PACK_R, PACK_L = 262_144, 160  # a default chunk of 150 bp reads, trimmed
+PROBE_U, PROBE_N = 1 << 20, 1 << 21  # the gather probe: tests/profile_gather.py
 REPORT_K = 21  # the default k: the kernels line reports this k's times
 REPS = 20
-KERNELS = {
-    "bucket_queries": "bronko_tpu/ops/pallas_buckets.py:83",
-    "fold_table": "bronko_tpu/ops/pallas_buckets.py:197",
+KERNELS = {  # name: (TPU kernel it replaces, source)
+    "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
+                       "bronko_tpu_torch/csrc/bucket_kernels.cu"),
+    "fold_table": ("bronko_tpu/ops/pallas_buckets.py:197",
+                   "bronko_tpu_torch/csrc/bucket_kernels.cu"),
+    "pack_windows": ("bronko_tpu/ops/pallas_pack.py:27",
+                     "bronko_tpu_torch/csrc/count_kernels.cu"),
+    "gather": ("tests/profile_gather.py:46",
+               "bronko_tpu_torch/csrc/gather_kernel.cu"),
 }
 
 
@@ -98,13 +116,22 @@ def phase_device() -> tuple[str, str]:
     return kind, smi
 
 
+def drive(fn):
+    """Run one path of the port with every launch count set to 0 just
+    before it; returns (fn's result, the counts read just after)."""
+    for name in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[name] = 0
+    out = fn()
+    return out, dict(cuda_lib.LAUNCHES)
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    report = cuda_buckets.build()
+    report = cuda_lib.build()
     took = time.perf_counter() - t0
     regs = [ln.strip() for ln in (report or "").splitlines() if "registers" in ln]
     print(f"[build] {'compiled' if report is not None else 'up to date'} "
-          f"{cuda_buckets.LIB_PATH} in {took:.2f}s; {'; '.join(regs)}", flush=True)
+          f"{cuda_lib.LIB_PATH} in {took:.2f}s; {'; '.join(regs)}", flush=True)
 
 
 def _kernel_inputs(k: int, rng, device):
@@ -116,10 +143,21 @@ def _kernel_inputs(k: int, rng, device):
     return from_u64(kmers, device), torch.from_numpy(counts).to(device)
 
 
+def _pack_inputs(rng, device):
+    """A chunk of reads as the device counter gets it: codes 0..5 with
+    about 2% >= 4, lengths 100..160."""
+    codes = rng.integers(0, 4, size=(PACK_R, PACK_L), dtype=np.uint8)
+    bad = rng.random((PACK_R, PACK_L), dtype=np.float32) < 0.02
+    codes[bad] = rng.integers(4, 6, size=int(bad.sum()), dtype=np.uint8)
+    lengths = rng.integers(100, PACK_L + 1, size=PACK_R, dtype=np.int32)
+    return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
+
+
 def phase_kernels(smi: str) -> dict:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     rows = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    codes, lengths = _pack_inputs(rng, dev)
     for k in KERNEL_KS:
         kmers, counts = _kernel_inputs(k, rng, dev)
         positions = tuple(filtered_bucket_positions(k, 2, False))
@@ -130,6 +168,9 @@ def phase_kernels(smi: str) -> dict:
             "fold_table": (
                 lambda: (cuda_buckets.fold_table(kmers, counts, k),),
                 lambda: (cuda_buckets.fold_table_plain(kmers, counts, k),)),
+            "pack_windows": (
+                lambda: count.pack_windows(codes, lengths, k),
+                lambda: count.pack_windows_plain(codes, lengths, k)),
         }
         full = tuple(range(k))  # --use-full-kmer keeps every position
         if not torch.equal(cuda_buckets.bucket_queries(kmers, k, full)[0],
@@ -142,11 +183,36 @@ def phase_kernels(smi: str) -> dict:
             if err != 0.0:
                 fail("kernels", f"{name} differs from its plain version at k={k}")
             ms, plain_ms = median_ms(kernel), median_ms(plain)
-            print(f"[kernels] {name} k={k} B={KERNEL_B}: equal; kernel {ms:.4f} ms, "
+            shape = f"R={PACK_R} L={PACK_L}" if name == "pack_windows" else f"B={KERNEL_B}"
+            print(f"[kernels] {name} k={k} {shape}: equal; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms (median of {REPS}; {smi})", flush=True)
             if k == REPORT_K:
                 rows[name].update(ms=ms, plain_ms=plain_ms)
     return rows
+
+
+def phase_gather(smi: str) -> dict:
+    """The gather probe (tests/profile_gather.py's shapes): K4 against its
+    plain version, launches counted around the probe's own gathers."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    U, N = PROBE_U, PROBE_N
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, size=U, dtype=np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, U, size=N, dtype=np.int32)).to(dev)
+    ms, launches = drive(lambda: median_ms(lambda: cuda_gather.gather(tbl, idx)))
+    err = max_abs_err((cuda_gather.gather(tbl, idx),), (cuda_gather.gather_plain(tbl, idx),))
+    torch.cuda.synchronize()
+    if err != 0.0:
+        fail("gather", "gather differs from its plain version")
+    if launches["gather"] == 0:
+        fail("gather", "the gather probe never launched its kernel")
+    plain_ms = median_ms(lambda: cuda_gather.gather_plain(tbl, idx))
+    idx64 = idx.long()  # torch's own indexing gather, without the range check
+    index_ms = median_ms(lambda: tbl[idx64])
+    print(f"[gather] U={U} N={N}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch indexing with int64 indices {index_ms:.4f} ms (median of {REPS}; {smi}); "
+          f"launches {launches['gather']}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches["gather"]}
 
 
 def make_fixture() -> tuple[list[str], str, list[int]]:
@@ -185,10 +251,13 @@ def make_fixture() -> tuple[list[str], str, list[int]]:
     return genome_paths, fastq, sorted(p for p in majors if p not in minors)
 
 
-def run_call(db: str, fastq: str, out: str, device: torch.device):
-    args = cli.build_parser().parse_args(
-        ["call", "-d", db, "-r", fastq, "-o", out, "--pileup"])
-    results = cli.run_call_cmd(cli.call_config(args), device=device)
+def call_args(db: str, fastq: str, out: str, counter: str):
+    return cli.call_config(cli.build_parser().parse_args(
+        ["call", "-d", db, "-r", fastq, "-o", out, "--pileup", "--counter", counter]))
+
+
+def run_call(db: str, fastq: str, out: str, device: torch.device | None, counter: str):
+    results = cli.run_call_cmd(call_args(db, fastq, out, counter), device=device)
     if len(results) != 1:
         fail("main", f"expected one sample result, got {len(results)}")
     return results[0]
@@ -200,6 +269,14 @@ def read_vcf(out: str) -> str:
         return fh.read()
 
 
+def read_outputs(out: str) -> dict[str, bytes]:
+    outputs = {}
+    for f in sorted(os.listdir(out)):
+        with open(os.path.join(out, f), "rb") as fh:
+            outputs[f] = fh.read()
+    return outputs
+
+
 def stage_line(tag: str, res, smi: str) -> str:
     total = sum(res.seconds.values())
     stages = ", ".join(f"{s} {v:.4f}" for s, v in res.seconds.items())
@@ -207,10 +284,74 @@ def stage_line(tag: str, res, smi: str) -> str:
             f"{res.reads / total:.0f} reads/s ({res.reads} reads; {smi})")
 
 
+def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
+    """`call --counter device` on the card, held against the host counter's
+    card run `host`."""
+    gpu = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(gpu)
+    out = os.path.join(work, "gpu_device")
+    res, launches = drive(lambda: run_call(db, fastq, out, None, "device"))
+    peak = torch.cuda.max_memory_allocated(gpu)
+    print(stage_line("count", res, smi), flush=True)
+    print(f"[count] launches {launches}; peak device memory {peak} bytes "
+          f"({peak / 2**20:.1f} MiB; {smi})", flush=True)
+    missing = [n for n in ("pack_windows", "bucket_queries", "fold_table") if launches[n] == 0]
+    if missing:
+        fail("count", f"kernels never launched on the device-counter path: {missing}")
+
+    counted = {}
+    for counter in ("host", "device"):
+        cfg = call_args(db, fastq, out, counter)
+        counted[counter] = engine.count_job([fastq], cfg, cfg.kmer, gpu)
+    (hk, hc, hs), (dk, dc, ds) = counted["host"], counted["device"]
+    if not (np.array_equal(hk, dk) and np.array_equal(hc, dc)):
+        fail("count", "the device counter's k-mers or counts differ from the host counter's")
+    if hs != ds:
+        fail("count", f"count stats differ: host {hs}, device {ds}")
+    if res.best != host.best or not np.array_equal(res.tallies, host.tallies):
+        fail("count", "tallies or the selected genome differ from the host counter's")
+    if not np.array_equal(res.pileup, host.pileup):
+        fail("count", "pileups differ from the host counter's")
+    want = read_outputs(os.path.join(work, "gpu"))
+    if read_outputs(out) != want:
+        fail("count", "output files differ from the host counter's")
+    print(f"[count] {dk.shape[0]} k-mers, counts and stats {ds} equal the host "
+          f"counter's; tallies, best genome {res.best}, pileup and "
+          f"{', '.join(want)} equal the host counter's card run", flush=True)
+    return launches
+
+
+def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
+    """n more samples with each counter, in turns (host, device, device,
+    host, ...); with n > 1 also each stage's median (q1, q3)."""
+    runs = {"host": [], "device": []}
+    for i in range(n):
+        for counter in ("host", "device") if i % 2 == 0 else ("device", "host"):
+            res = run_call(db, fastq, os.path.join(work, f"warm_{counter}"), None, counter)
+            runs[counter].append(res)
+            print(stage_line(f"warm {counter}", res, smi), flush=True)
+    if n > 1:
+        def quartiles(values):
+            q1, med, q3 = statistics.quantiles(values, n=4)
+            return f"{med:.6f} ({q1:.6f}, {q3:.6f})", med
+
+        for counter, results in runs.items():
+            stages = [f"{s} {quartiles([r.seconds[s] for r in results])[0]}"
+                      for s in engine.STAGES]
+            total, med = quartiles([sum(r.seconds.values()) for r in results])
+            print(f"[warm {counter}] median (q1, q3) of {n}: {', '.join(stages)}; "
+                  f"total {total} -> {results[0].reads / med:.0f} reads/s ({smi})", flush=True)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--warm", type=int, default=1,
+                        help="warm samples per counter after the checks")
+    args = parser.parse_args()
     kind, smi = phase_device()
     phase_build()
     rows = phase_kernels(smi)
+    rows["gather"] = phase_gather(smi)
 
     t0 = time.perf_counter()
     genome_paths, fastq, planted = make_fixture()
@@ -225,16 +366,14 @@ def main() -> int:
         fail("main", "build failed")
 
     gpu = torch.device("cuda", 0)
-    for name in cuda_buckets.LAUNCHES:
-        cuda_buckets.LAUNCHES[name] = 0
     torch.cuda.reset_peak_memory_stats(gpu)
-    res = run_call(db + ".bkdb", fastq, os.path.join(work, "gpu"), None)
-    launches = dict(cuda_buckets.LAUNCHES)
+    res, launches = drive(lambda: run_call(db + ".bkdb", fastq, os.path.join(work, "gpu"),
+                                           None, "host"))
     peak = torch.cuda.max_memory_allocated(gpu)
     print(stage_line("main", res, smi), flush=True)
     print(f"[main] launches {launches}; peak device memory {peak} bytes "
           f"({peak / 2**20:.1f} MiB; {smi})", flush=True)
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in ("bucket_queries", "fold_table") if launches[n] == 0]
     if missing:
         fail("main", f"kernels never launched on the main path: {missing}")
 
@@ -244,7 +383,8 @@ def main() -> int:
     absent = [p + 1 for p in planted if p + 1 not in passing]
     if absent:
         fail("check", f"planted majors missing from the VCF: {absent}")
-    ref = run_call(db + ".bkdb", fastq, os.path.join(work, "cpu"), torch.device("cpu"))
+    ref = run_call(db + ".bkdb", fastq, os.path.join(work, "cpu"), torch.device("cpu"),
+                   "host")
     if res.best != ref.best:
         fail("check", f"selected genome {res.best} on the card, {ref.best} on the CPU")
     if not np.array_equal(res.tallies, ref.tallies):
@@ -256,16 +396,18 @@ def main() -> int:
     print(f"[check] {len(planted)} planted majors PASS; tallies, best genome "
           f"{res.best} and the {tuple(res.pileup.shape)} pileup equal the CPU run; "
           f"CPU {stage_line('cpu', ref, 'host CPU')}", flush=True)
-    warm = run_call(db + ".bkdb", fastq, os.path.join(work, "gpu2"), None)
-    print(stage_line("warm", warm, smi), flush=True)
+    count_launches = phase_count(db + ".bkdb", fastq, work, res, smi)
+    phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
 
+    # each kernel's launches on its own path: K1 and K2 on the main path,
+    # K3 on the device counter's, K4 on the gather probe's
+    launches["pack_windows"] = count_launches["pack_windows"]
+    launches["gather"] = rows["gather"]["launches"]
     kernels = [{
-        "name": name, "route": "cuda",
-        "source": "bronko_tpu_torch/csrc/bucket_kernels.cu",
-        "replaces": KERNELS[name], "launches": launches[name],
-        "max_abs_err": rows[name]["max_abs_err"],
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-    } for name in KERNELS]
+    } for name, (replaces, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Kernels K1/K2 and the port's main path on a CUDA card, against the plain
-PyTorch versions on the same card and the CPU run. Skipped without a card;
-on one: python -m pytest tests/test_torch_cuda.py -m cuda"""
+"""Kernels K1-K4 and the port's main path (with the host and the device
+counter) on a CUDA card, against the plain PyTorch versions on the same
+card and the CPU run. Skipped without a card; on one:
+python -m pytest tests/test_torch_cuda.py -m cuda"""
 
 import os
 
@@ -15,7 +16,8 @@ from bronko_tpu.index.build import build_index  # noqa: E402
 from bronko_tpu.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.call.engine import run_call  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
-from bronko_tpu_torch.ops import cuda_buckets as cb  # noqa: E402
+from bronko_tpu_torch.ops import count, cuda_gather  # noqa: E402
+from bronko_tpu_torch.ops import cuda_buckets as cb, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 # plain module name (pytest puts tests/ on sys.path): an installed package
 # called `tests` can shadow this directory where the card is
@@ -44,7 +46,7 @@ def _inputs(k, n, device, seed):
 @pytest.mark.parametrize("k", [15, 21, 31])
 def test_kernels_equal_plain_on_the_card(gpu, k):
     kmers, counts = _inputs(k, 100_003, gpu, k)
-    before = dict(cb.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     for positions in (tuple(filtered_bucket_positions(k, 2, False)), tuple(range(k))):
         for got, want in zip(cb.bucket_queries(kmers, k, positions),
                              cb.bucket_queries_plain(kmers, k, positions)):
@@ -52,8 +54,8 @@ def test_kernels_equal_plain_on_the_card(gpu, k):
     assert torch.equal(cb.fold_table(kmers, counts, k),
                        cb.fold_table_plain(kmers, counts, k))
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["bucket_queries"] == before["bucket_queries"] + 2
-    assert cb.LAUNCHES["fold_table"] == before["fold_table"] + 1
+    assert cuda_lib.LAUNCHES["bucket_queries"] == before["bucket_queries"] + 2
+    assert cuda_lib.LAUNCHES["fold_table"] == before["fold_table"] + 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
@@ -66,6 +68,65 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
         cb.bucket_queries(kmers, 21, (3, 2))
     with pytest.raises(ValueError):
         cb.fold_table(kmers, counts.to(torch.int64), 21)
+
+
+def _codes(R, L, device, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    bad = rng.random((R, L)) < 0.02
+    codes[bad] = rng.integers(4, 6, size=int(bad.sum()))
+    lengths = rng.integers(L - 70, L + 5, size=R).astype(np.int32)
+    return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_pack_windows_equals_plain_on_the_card(gpu, k):
+    codes, lengths = _codes(20_011, 160, gpu, k)
+    before = cuda_lib.LAUNCHES["pack_windows"]
+    for got, want in zip(count.pack_windows(codes, lengths, k),
+                         count.pack_windows_plain(codes, lengths, k)):
+        assert torch.equal(got, want)
+    got = count.extract_and_count_chunk(codes, lengths, k)
+    want = count.extract_and_count_chunk(codes.cpu(), lengths.cpu(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert got[2] == want[2]
+    assert cuda_lib.LAUNCHES["pack_windows"] == before + 2
+
+
+def test_gather_equals_plain_on_the_card(gpu):
+    rng = np.random.default_rng(4)
+    U, N = 1 << 20, (1 << 21) + 3
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, size=U, dtype=np.int32)).to(gpu)
+    idx = torch.from_numpy(rng.integers(0, U, size=N, dtype=np.int32)).to(gpu)
+    before = cuda_lib.LAUNCHES["gather"]
+    assert torch.equal(cuda_gather.gather(tbl, idx), cuda_gather.gather_plain(tbl, idx))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["gather"] == before + 1
+
+
+def test_count_and_gather_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    codes, lengths = _codes(64, 96, gpu, 0)
+    with pytest.raises(ValueError):
+        count.pack_windows(codes.to(torch.int32), lengths, 21)
+    with pytest.raises(ValueError):
+        count.pack_windows(codes[:, ::2], lengths, 21)
+    with pytest.raises(ValueError):
+        count.pack_windows(codes, lengths.to(torch.int64), 21)
+    with pytest.raises(ValueError):
+        count.pack_windows(codes, lengths[:10], 21)
+    with pytest.raises(ValueError):
+        count.pack_windows(codes, lengths.cpu(), 21)
+    tbl = torch.arange(100, dtype=torch.int32, device=gpu)
+    idx = torch.arange(50, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError):
+        cuda_gather.gather(tbl.to(torch.int64), idx)
+    with pytest.raises(ValueError):
+        cuda_gather.gather(tbl, idx[::2])
+    with pytest.raises(ValueError):
+        cuda_gather.gather(tbl, idx.reshape(5, 10))
+    with pytest.raises(ValueError):
+        cuda_gather.gather(tbl.cpu(), idx)
 
 
 def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
@@ -84,13 +145,17 @@ def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
     write_fastq(fq, reads)
     index = build_index(21, genomes)
     results = {}
-    for name, device in (("cpu", torch.device("cpu")), ("gpu", gpu)):
+    for name, device, counter in (("cpu", torch.device("cpu"), "host"),
+                                  ("gpu", gpu, "host"), ("gpu_device", gpu, "device")):
         cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),
-                         output_pileup=True, batch_size=4096)
+                         output_pileup=True, batch_size=4096, counter=counter)
+        before = cuda_lib.LAUNCHES["pack_windows"]
         (results[name],) = run_call(cfg, index, build_device_index(index, device))
-    assert results["gpu"].best == results["cpu"].best
-    np.testing.assert_array_equal(results["gpu"].tallies, results["cpu"].tallies)
-    np.testing.assert_array_equal(results["gpu"].pileup, results["cpu"].pileup)
-    for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
-        assert open(tmp_path / "gpu" / f).read() == open(tmp_path / "cpu" / f).read()
+        assert (cuda_lib.LAUNCHES["pack_windows"] > before) == (name == "gpu_device")
+    for name in ("gpu", "gpu_device"):
+        assert results[name].best == results["cpu"].best
+        np.testing.assert_array_equal(results[name].tallies, results["cpu"].tallies)
+        np.testing.assert_array_equal(results[name].pileup, results["cpu"].pileup)
+        for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+            assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
     assert os.path.getsize(tmp_path / "gpu" / "s.vcf") > 0

@@ -53,30 +53,66 @@ def _outputs(out):
     return {f: open(os.path.join(out, f)).read() for f in sorted(os.listdir(out))}
 
 
-@pytest.mark.parametrize("case", ["single", "paired_pileup", "four_alignment"])
+@pytest.mark.parametrize("case", ["single", "paired_pileup", "four_alignment",
+                                  "single_device", "paired_device"])
 def test_run_call_matches_jax(synth, case):
+    """The port against bronko_tpu with the same counter; with
+    --counter device also against the port's own host counter."""
     tmp, genomes, (fq0, fq1) = synth
     kw = {
         "single": dict(reads=[fq0]),
         "paired_pileup": dict(first_pairs=[fq1], second_pairs=[fq0], output_pileup=True),
         "four_alignment": dict(reads=[fq0, fq1, fq0], first_pairs=[fq0],
                                 second_pairs=[fq0], output_alignment=True),
+        "single_device": dict(reads=[fq0], counter="device"),
+        "paired_device": dict(first_pairs=[fq1], second_pairs=[fq0], output_pileup=True,
+                              counter="device"),
     }[case]
     index = build_index(21, genomes)
+    runs = [("jax", jax_engine.run_call, jax_layout.build_device_index(index), kw),
+            ("torch", run_call, build_device_index(index, CPU), kw)]
+    if kw.get("counter") == "device":
+        runs.append(("torch_host", run_call, build_device_index(index, CPU),
+                     {**kw, "counter": "host"}))
     outs = {}
-    for name, run, dev in (("jax", jax_engine.run_call, jax_layout.build_device_index(index)),
-                           ("torch", run_call, build_device_index(index, CPU))):
-        outs[name] = str(tmp / f"{case}_{name}")
-        cfg = CallConfig(genomes=genomes, output=outs[name], batch_size=2048,
-                         chunk_reads=4096, **kw)
+    for name, run, dev, kwargs in runs:
+        cfg = CallConfig(genomes=genomes, output=str(tmp / f"{case}_{name}"),
+                         batch_size=2048, chunk_reads=4096, **kwargs)
         run(cfg, index, dev)
-    want, got = _outputs(outs["jax"]), _outputs(outs["torch"])
-    assert sorted(got) == sorted(want)
-    assert any(f.endswith(".vcf") for f in got)
+        outs[name] = _outputs(cfg.output)
+    want = outs["jax"]
+    assert any(f.endswith(".vcf") for f in want)
     if case == "four_alignment":
-        assert any(f.endswith(".mfa") for f in got)
-    for f in want:
-        assert got[f] == want[f], f
+        assert any(f.endswith(".mfa") for f in want)
+    for name, got in outs.items():
+        assert sorted(got) == sorted(want), name
+        for f in want:
+            assert got[f] == want[f], (name, f)
+
+
+def test_device_counter_reads_longer_than_the_native_rows(tmp_path, caplog):
+    """Reads of 600 bp exceed the native reader's 512-wide rows: the device
+    counter restarts the file on the Python parser and still equals the
+    host counter."""
+    rng = np.random.default_rng(31)
+    genome = make_genome(rng, 1500)
+    reads, _ = make_sample(genome, rng, read_len=600, depth=40,
+                           major_positions={700: 0.95}, error_rate=0.002)
+    ref = str(tmp_path / "long.fasta")
+    write_fasta(ref, "long", genome)
+    fq = str(tmp_path / "long.fastq.gz")
+    write_fastq(fq, reads)
+    index = build_index(21, [ref])
+    results = {}
+    for counter in ("host", "device"):
+        cfg = CallConfig(genomes=[ref], reads=[fq], output=str(tmp_path / counter),
+                         chunk_reads=32, output_pileup=True, counter=counter)
+        (results[counter],) = run_call(cfg, index, build_device_index(index, CPU))
+    assert "using Python parser" in caplog.text
+    np.testing.assert_array_equal(results["device"].pileup, results["host"].pileup)
+    assert _outputs(tmp_path / "device") == _outputs(tmp_path / "host")
+    assert any(ln.split("\t")[1] == "701"
+               for ln in open(tmp_path / "device" / "long.vcf") if not ln.startswith("#"))
 
 
 def test_golden_sample(tmp_path, monkeypatch):
@@ -111,11 +147,57 @@ def test_cli_build_and_call_match_jax(synth, monkeypatch):
     assert _outputs(out) == _outputs(jout)
 
 
+@pytest.mark.parametrize("counter,native_ok,used", [
+    ("auto", True, "host"), ("auto", False, "device"), ("device", True, "device"),
+    ("host", False, None),
+])
+def test_counter_choice(synth, monkeypatch, caplog, counter, native_ok, used):
+    """auto counts on the host when the native library builds and loads, else
+    on the device; host never falls back. Every counter gives one output."""
+    import bronko_tpu_torch.call.engine as engine
+
+    tmp, genomes, (fq0, _) = synth
+    if not native_ok:
+        def broken():
+            raise RuntimeError("building the native library failed")
+        monkeypatch.setattr(engine, "native_lib", broken)
+    caplog.set_level("INFO", logger="bronko")
+    index = build_index(21, genomes)
+    out = tmp / f"choice_{counter}_{native_ok}"
+    cfg = CallConfig(genomes=genomes, reads=[fq0], output=str(out), counter=counter)
+    if used is None:
+        with pytest.raises(SystemExit):
+            run_call(cfg, index, build_device_index(index, CPU))
+        assert "Sample" in caplog.text and "failed" in caplog.text
+        return
+    run_call(cfg, index, build_device_index(index, CPU))
+    assert f"with the {used} counter" in caplog.text
+    want = tmp / "choice_reference"
+    if not want.exists():
+        run_call(CallConfig(genomes=genomes, reads=[fq0], output=str(want), counter="host"),
+                 index, build_device_index(index, CPU))
+    assert _outputs(out) == _outputs(want)
+
+
+def test_cli_device_counter_matches_jax(synth, monkeypatch):
+    """`call --counter device` exits 0 and writes bronko_tpu's files."""
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    out = str(tmp / "cli_device")
+    assert cli.main(["call", "-g", *genomes, "-r", fq0, "-o", out, "--pileup",
+                     "--counter", "device"]) == 0
+    jout = str(tmp / "cli_device_jax")
+    index = build_index(21, genomes)
+    jax_engine.run_call(CallConfig(genomes=genomes, reads=[fq0], output=jout,
+                                   output_pileup=True, counter="device"),
+                        index, jax_layout.build_device_index(index))
+    assert _outputs(out) == _outputs(jout)
+
+
 @pytest.mark.parametrize("extra", [
     ["-k", "20"],                               # validation: even k
     ["--mesh", "2x1"],
     ["--shard-samples"],
-    ["--counter", "device"],
     ["--device-build", "on"],
     ["--profile-dir", "prof"],
     ["--coordinator", "localhost:1234", "--num-processes", "1", "--process-id", "0"],

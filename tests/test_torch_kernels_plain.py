@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from bronko_tpu.ops.buckets import filtered_bucket_positions  # noqa: E402
-from bronko_tpu_torch.ops import cuda_buckets as cb  # noqa: E402
+from bronko_tpu_torch.ops import cuda_buckets as cb, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64, to_u64  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -80,14 +80,14 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     rng = np.random.default_rng(5)
     kmers = from_u64(rng.integers(0, 1 << 42, size=64, dtype=np.uint64), CPU)
     counts = torch.from_numpy(rng.integers(0, 50, size=64, dtype=np.int32))
-    before = dict(cb.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     positions = tuple(filtered_bucket_positions(21, 2, False))
     for got, want in zip(cb.bucket_queries(kmers, 21, positions),
                          cb.bucket_queries_plain(kmers, 21, positions)):
         assert torch.equal(got, want)
     assert torch.equal(cb.fold_table(kmers, counts, 21),
                        cb.fold_table_plain(kmers, counts, 21))
-    assert cb.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
 
 
 def test_other_devices_raise_instead_of_falling_back():

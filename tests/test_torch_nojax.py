@@ -1,5 +1,6 @@
-"""The port needs nothing of JAX: its build + call run with jax blocked,
-and its sources import neither jax nor the JAX package's device modules."""
+"""The port needs nothing of JAX: its build + call (with the host and the
+device counter) run with jax blocked, and its sources import neither jax
+nor the JAX package's device modules."""
 
 import os
 import re
@@ -43,6 +44,12 @@ SCRIPT = textwrap.dedent("""
                      "-o", os.path.join(tmp, "out"), "--pileup"]) == 0
     rows = [l for l in open(os.path.join(tmp, "out", "s.vcf")) if not l.startswith("#")]
     assert any(l.split("\\t")[1] == "401" for l in rows), rows
+    assert cli.main(["call", "-d", db + ".bkdb", "-r", os.path.join(tmp, "s.fastq.gz"),
+                     "-o", os.path.join(tmp, "out_device"), "--pileup",
+                     "--counter", "device"]) == 0
+    for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+        assert (open(os.path.join(tmp, "out_device", f)).read()
+                == open(os.path.join(tmp, "out", f)).read()), f
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
                     or m.startswith(JAX_MODULES))
