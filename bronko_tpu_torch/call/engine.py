@@ -9,11 +9,15 @@ single-device driver of the main path:
      stream, as the reference's two map_kmers passes into shared pileups
      (call.rs:301-320);
   2. the k-mers go to the device in batches of cfg.batch_size;
-  3. pass 1 (ops/map.tally_save) tallies perfect/variant/unique k-mers per
-     genome; the tallies and the pass-2 walk lengths come back in one copy;
+  3. pass 1 tallies perfect/variant/unique k-mers per genome; the tallies
+     and the pass-2 walk lengths come back in one copy. With a histogram,
+     postings grouped by genome and a probe within PROBE_BYTES_CAP it
+     saves its probe (ops/map.tally_save); otherwise it tallies without
+     one (ops/map.tally: histogram or flat);
   4. the host picks the best genome (pick_best_genome, f64, first maximum);
-  5. pass 2 (ops/map.pileup_from_saved) builds the selected genome's
-     int32 pileup, which comes back in one copy;
+  5. pass 2 builds the selected genome's int32 pileup from the saved probe
+     (ops/map.pileup_from_saved) or through the genome's sub-index
+     (ops/map.pileup_from_subindex); it comes back in one copy;
   6. the host runs the noise scan, the f64 filter cascade and the writers
      (bronko_tpu.call.*).
 
@@ -43,17 +47,21 @@ from bronko_tpu.consts import KMER_COUNT_CAP
 from bronko_tpu.index.model import BronkoIndex
 from bronko_tpu.io import native
 from bronko_tpu.io.fastq import read_fastq_chunks
-from bronko_tpu_torch.index.layout import DeviceIndex, unsupported_reason
+from bronko_tpu_torch.index.layout import DeviceIndex
 from bronko_tpu_torch.ops.codec import from_u64
 from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
     PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
-    pileup_from_saved, tally_save,
+    pileup_from_saved, pileup_from_subindex, tally, tally_save,
 )
 
 log = logging.getLogger("bronko")
 
 STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
+
+# cap on the saved pass-1 probe, which stays on the device until pass 2
+# (JAX engine.py:51)
+PROBE_BYTES_CAP = 512 << 20
 
 
 @dataclass
@@ -65,6 +73,7 @@ class SampleResult:
     pileup: np.ndarray           # (4, Tg+1, 4) int32, genome-local
     reads: int                   # reads counted
     seconds: dict[str, float]    # wall seconds by STAGES
+    path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved' or 'subindex')
 
 
 @functools.cache
@@ -283,24 +292,18 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
                 fh.write(f"{kmer_to_string(km, index.k)}\t{ct}\n")
 
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-    G = dev.num_genomes
     if len(mcfg.positions) == 0:
         kmers, counts = kmers[:0], counts[:0]  # no bucket survives the trim
     batches = to_batches(kmers, counts, cfg.batch_size, dev.device)
     _sync(dev.device)
     t.append(time.perf_counter())
 
-    tallies_t, lanes_t, saved = tally_save(batches, dev, mcfg)
-    host = torch.cat([tallies_t.to(torch.int64).reshape(-1),
-                      lanes_t.reshape(-1)]).cpu().numpy()
-    tallies = host[:3 * G].reshape(G, 3)
-    lanes = host[3 * G:].reshape(-1, G)
+    p1 = run_pass1(batches, dev, mcfg, kmers.shape[0])
     log.info("Tallied %d kmers in %.2fs", kmers.shape[0], time.perf_counter() - t[-1])
-    best, triple = _select_and_log(tallies, index, dev, cstats)
+    best, triple = _select_and_log(p1.tallies, index, dev, cstats)
     t.append(time.perf_counter())
 
-    pileup_t = pileup_from_saved(batches, saved, lanes[:, best].tolist(),
-                                 dev.postings_local32, best, mcfg, dev.g_total_len)
+    pileup_t = run_pass2(batches, dev, mcfg, p1, best)
     _sync(dev.device)
     log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
     t.append(time.perf_counter())
@@ -310,8 +313,57 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
     summary, records = _finish_one(display, index, dev, cfg, best, pileup, triple)
     t.append(time.perf_counter())
     seconds = {s: t[i + 1] - t[i] for i, s in enumerate(STAGES)}
-    return SampleResult(summary, records, tallies, best, pileup,
-                        cstats.total_reads, seconds)
+    return SampleResult(summary, records, p1.tallies, best, pileup, cstats.total_reads,
+                        seconds, p1.path)
+
+
+def saves_probe(dev: DeviceIndex, n_kmers: int, J: int) -> bool:
+    """Whether pass 1 saves its probe for pass 2 (JAX engine.py:790-800):
+    a histogram exists, postings are grouped by genome within a bucket,
+    and the probe — an int32 start and the histogram words for each of
+    the sample's n_kmers x J queries (the port pads no batch) — stays
+    under PROBE_BYTES_CAP."""
+    if dev.hist is not None:
+        per_q = 4 + dev.hist.element_size()
+    elif dev.hist_words is not None:
+        per_q = 4 + 8 * dev.hist_words.shape[1]
+    else:
+        return False
+    return dev.fid_grouped and n_kmers * J * per_q < PROBE_BYTES_CAP
+
+
+@dataclass
+class Pass1:
+    tallies: np.ndarray      # (G, 3) int64 perfect / variant / unique
+    lanes: np.ndarray        # (nb, G) int64 pass-2 walk length by batch and genome
+    saved: list | None       # the saved probe, or None: pass 2 probes the sub-index
+    path: tuple[str, str]    # (tally mode, 'saved' or 'subindex')
+
+
+def run_pass1(batches, dev: DeviceIndex, mcfg, n_kmers: int) -> Pass1:
+    """Pass 1 over the sample's device batches, the route chosen as the JAX
+    engine's single-device dispatch does (engine.py:780-870); tallies and
+    walk lengths come back in one copy."""
+    G = dev.num_genomes
+    mode = dev.tally_mode()
+    saved = None
+    if saves_probe(dev, n_kmers, len(mcfg.positions)):
+        tallies_t, lanes_t, saved = tally_save(batches, dev, mcfg)
+    else:
+        tallies_t, lanes_t = tally(batches, dev, mcfg, mode)
+    host = torch.cat([tallies_t.to(torch.int64).reshape(-1),
+                      lanes_t.reshape(-1)]).cpu().numpy()
+    return Pass1(host[:3 * G].reshape(G, 3), host[3 * G:].reshape(-1, G), saved,
+                 (mode, "subindex" if saved is None else "saved"))
+
+
+def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Tensor:
+    """Pass 2 for genome `best`: the (4, Tg+1, 4) int32 pileup on the device."""
+    walk = p1.lanes[:, best].tolist()
+    if p1.saved is None:
+        return pileup_from_subindex(batches, dev.subindex(best), walk, mcfg, dev.g_total_len)
+    return pileup_from_saved(batches, p1.saved, walk, dev.pass2_postings(), best, mcfg,
+                             dev.g_total_len, int(dev.file_bases[best]))
 
 
 def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex) -> list[SampleResult]:
@@ -319,9 +371,6 @@ def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex) -> list[Samp
     order, each isolated; then the overview and the alignment. Raises
     SystemExit(1) when every sample failed. Returns the samples that
     succeeded, in input order."""
-    reason = unsupported_reason(dev)
-    if reason is not None:
-        raise ValueError(f"unsupported index: {reason}; see ROADMAP.md")
     os.makedirs(cfg.output, exist_ok=True)
     jobs = [[p] for p in cfg.reads] + [
         [r1, r2] for r1, r2 in zip(cfg.first_pairs, cfg.second_pairs)]

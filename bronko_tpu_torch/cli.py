@@ -3,8 +3,8 @@
 Counterpart of `bronko_tpu/cli.py`, with the same parser and `build`. The
 device comes from BRONKO_PLATFORM, as in the JAX package: `gpu` (the
 default) runs on the current CUDA device and exits 1 when there is none;
-`cpu` runs the kernels' plain PyTorch versions on the CPU. Flags and
-index shapes outside this port's slice exit 1 and point to ROADMAP.md.
+`cpu` runs the kernels' plain PyTorch versions on the CPU. Flags outside
+this port's slice exit 1 and point to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
     from bronko_tpu.index.build import build_index
     from bronko_tpu.index.store import load_index
     from bronko_tpu_torch.call.engine import run_call
-    from bronko_tpu_torch.index.layout import build_device_index, unsupported_reason
+    from bronko_tpu_torch.index.layout import build_device_index
 
     cfg.validate()
     if cfg.mesh is not None:
@@ -80,9 +80,6 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
         log.error("%s | Unable to build/read index, exiting", e)
         raise SystemExit(1) from None
     dev = build_device_index(index, device)
-    reason = unsupported_reason(dev)
-    if reason is not None:
-        _refuse(f"This index ({reason})")
     results = run_call(cfg, index, dev)
     if len(results) < len(cfg.reads) + len(cfg.first_pairs):
         raise SystemExit(2)  # partial failure: some samples were skipped

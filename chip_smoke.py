@@ -22,9 +22,17 @@ Phases, one line each; any failure exits non-zero:
   7. count: `call -d -r --pileup --counter device` on the card, launch
      counts read around it: its k-mers, counts and stats, tallies, genome,
      pileup and output files equal the host counter's on the card;
-  8. warm: N (default 1) more samples with each counter, in turns, with
+  8. panel: the 32-strain panel (strains of synth0, 60 substitutions each,
+     synth0 itself as strain 17; G = 32, so the multi-word histogram with
+     W = 4 words): `build`, then `call -d -r --pileup` on the card, which
+     takes the saved-probe words path, selects strain 17, calls every
+     planted major PASS and equals the same call on the CPU; then, on the
+     same sample's device batches, the flat tally and the sub-index
+     pass 2 for strain 17 equal the words path, K1 and K2 launched there
+     too; stage seconds, device peaks and index bytes;
+  9. warm: N (default 1) more samples with each counter, in turns, with
      their stage seconds;
-  9. the last stdout line: {"ok": true, "device": {...}}.
+ 10. the last stdout line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,9 +55,12 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from bronko_tpu.index.store import load_index  # noqa: E402
 from bronko_tpu_torch import cli  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
+from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
+from bronko_tpu_torch.ops import map as tmap  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 
@@ -66,6 +77,10 @@ PACK_R, PACK_L = 262_144, 160  # a default chunk of 150 bp reads, trimmed
 PROBE_U, PROBE_N = 1 << 20, 1 << 21  # the gather probe: tests/profile_gather.py
 REPORT_K = 21  # the default k: the kernels line reports this k's times
 REPS = 20
+PANEL_STRAINS = 32  # README's SARS-scale panel: 4 histogram words of 8 genomes
+PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
+PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
+PANEL_REPS = 5
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
                        "bronko_tpu_torch/csrc/bucket_kernels.cu"),
@@ -215,17 +230,22 @@ def phase_gather(smi: str) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches["gather"]}
 
 
-def make_fixture() -> tuple[list[str], str, list[int]]:
-    """The bench fixture (bench.py's synthetic branch, first sample):
-    returns genome paths, the FASTQ path and the planted major positions
-    (0-based). Draws from the seed in bench.py's order even when cached."""
-    # by path: tests/ has no __init__.py, and an installed package named
-    # `tests` would shadow the namespace package
+def _synthetic():
+    """tests/make_synthetic.py, loaded by path: tests/ has no __init__.py,
+    and an installed package named `tests` would shadow the namespace
+    package."""
     spec = importlib.util.spec_from_file_location(
         "make_synthetic", os.path.join(REPO, "tests", "make_synthetic.py"))
     synth = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(synth)
+    return synth
 
+
+def make_fixture() -> tuple[list[str], str, list[int]]:
+    """The bench fixture (bench.py's synthetic branch, first sample):
+    returns genome paths, the FASTQ path and the planted major positions
+    (0-based). Draws from the seed in bench.py's order even when cached."""
+    synth = _synthetic()
     os.makedirs(CACHE, exist_ok=True)
     rng = np.random.default_rng(SEED)
     genome_paths, genomes = [], []
@@ -321,6 +341,143 @@ def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
     return launches
 
 
+def make_panel(synth0: str) -> list[str]:
+    """The 32-strain panel: strains of synth0 with PANEL_SNPS seeded
+    substitutions each, synth0 itself as strain PANEL_SELF; cached."""
+    synth = _synthetic()
+    with open(synth0) as fh:
+        seq = fh.read().split("\n", 1)[1].replace("\n", "").encode()
+    rng = np.random.default_rng(SEED + PANEL_STRAINS)
+    os.makedirs(os.path.join(CACHE, "panel"), exist_ok=True)
+    paths = []
+    for i in range(PANEL_STRAINS):
+        strain = bytearray(seq)
+        sites = rng.choice(len(seq), PANEL_SNPS, replace=False)
+        shifts = rng.integers(1, 4, PANEL_SNPS)
+        if i != PANEL_SELF:
+            for p, d in zip(sites, shifts):
+                strain[p] = b"ACGT"[(b"ACGT".index(strain[p]) + int(d)) % 4]
+        paths.append(os.path.join(CACHE, "panel", f"strain{i:02d}.fasta"))
+        if not os.path.exists(paths[-1]):
+            synth.write_fasta(paths[-1] + ".tmp", f"strain{i:02d}", bytes(strain))
+            os.replace(paths[-1] + ".tmp", paths[-1])
+    return paths
+
+
+def passing_majors(vcf: str) -> set[int]:
+    return {int(f[1]) for f in (ln.split("\t") for ln in vcf.splitlines()
+                                if ln and not ln.startswith("#")) if f[6] == "PASS"}
+
+
+def _timed(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str) -> None:
+    """The 32-strain panel through `build` and `call` on the card (the
+    saved-probe words path), held against the CPU; then the flat tally and
+    the sub-index pass 2 on the same device batches, held against it."""
+    gpu = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    paths = make_panel(synth0)
+    db = os.path.join(work, "panel32")
+    if cli.main(["build", "-g", *paths, "-o", db]) != 0:
+        fail("panel", "build failed")
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(gpu)
+    res, launches = drive(lambda: run_call(db + ".bkdb", fastq, os.path.join(work, "panel_gpu"),
+                                           None, "host"))
+    peak = torch.cuda.max_memory_allocated(gpu)
+    print(stage_line("panel", res, smi), flush=True)
+    print(f"[panel] {PANEL_STRAINS} strains built in {build_s:.2f}s; path {res.path}; launches "
+          f"{launches}; peak device memory {peak} bytes ({peak / 2**20:.1f} MiB; {smi})",
+          flush=True)
+    missing = [n for n in ("bucket_queries", "fold_table") if launches[n] == 0]
+    if missing:
+        fail("panel", f"kernels never launched on the panel's path: {missing}")
+    if res.path != ("words", "saved"):
+        fail("panel", f"expected the saved-probe words path, took {res.path}")
+    if res.best != PANEL_SELF:
+        fail("panel", f"selected strain {res.best}, not {PANEL_SELF}")
+    vcf = read_vcf(os.path.join(work, "panel_gpu"))
+    absent = [p + 1 for p in planted if p + 1 not in passing_majors(vcf)]
+    if absent:
+        fail("panel", f"planted majors missing from the VCF: {absent}")
+    ref = run_call(db + ".bkdb", fastq, os.path.join(work, "panel_cpu"), torch.device("cpu"),
+                   "host")
+    if (res.best, res.path) != (ref.best, ref.path) or not np.array_equal(res.tallies,
+                                                                        ref.tallies):
+        fail("panel", "tallies, selected strain or path differ between the card and the CPU")
+    if not np.array_equal(res.pileup, ref.pileup):
+        fail("panel", "pileups differ between the card and the CPU")
+    if vcf != read_vcf(os.path.join(work, "panel_cpu")):
+        fail("panel", "VCFs differ between the card and the CPU")
+    print(f"[panel] strain {res.best} selected; {len(planted)} planted majors PASS; tallies, "
+          f"pileup and VCF equal the CPU run; CPU {stage_line('cpu', ref, 'host CPU')}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    dev = build_device_index(load_index(db + ".bkdb"), gpu)
+    layout_s = time.perf_counter() - t0
+    W = None if dev.hist_words is None else dev.hist_words.shape[1]
+    if dev.hist is not None or W != -(-PANEL_STRAINS // 8) or not dev.fid_grouped:
+        fail("panel", f"expected the multi-word histogram with W = 4, grouped; got hist "
+                      f"{dev.hist is not None}, W = {W}, grouped {dev.fid_grouped}")
+    index_bytes = dev.device_bytes()
+    cfg = call_args(db + ".bkdb", fastq, work, "host")
+    kmers, counts, _ = engine.count_job([fastq], cfg, cfg.kmer, gpu)
+    batches = engine.to_batches(kmers, counts, cfg.batch_size, gpu)
+    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+
+    def words():
+        def pass1():
+            tallies, lanes, saved = tmap.tally_save(batches, dev, mcfg)
+            return tallies, lanes[:, PANEL_SELF].tolist(), saved
+        (tallies, walk, saved), pass1_s = _timed(pass1)
+        pileup, pass2_s = _timed(lambda: tmap.pileup_from_saved(
+            batches, saved, walk, dev.postings_local32, PANEL_SELF, mcfg, dev.g_total_len))
+        return (tallies, pileup), (pass1_s, pass2_s), sum(walk)
+
+    def flat():
+        def pass1():
+            tallies, lanes = tmap.tally(batches, dev, mcfg, "flat")
+            return tallies, lanes[:, PANEL_SELF].tolist(), int(lanes.sum())
+        (tallies, walk, n_lanes), pass1_s = _timed(pass1)
+        pileup, pass2_s = _timed(lambda: tmap.pileup_from_subindex(
+            batches, dev.subindex(PANEL_SELF), walk, mcfg, dev.g_total_len))
+        return (tallies, pileup), (pass1_s, pass2_s), (n_lanes, sum(walk))
+
+    torch.cuda.reset_peak_memory_stats(gpu)
+    (out, cold, (flat_lanes, walk_lanes)), flat_launches = drive(flat)
+    flat_peak = torch.cuda.max_memory_allocated(gpu)
+    missing = [n for n in ("bucket_queries", "fold_table") if flat_launches[n] == 0]
+    if missing:
+        fail("panel", f"kernels never launched on the flat / sub-index path: {missing}")
+    if not np.array_equal(out[0].cpu().numpy(), res.tallies):
+        fail("panel", "the flat tally differs from the words path's tallies")
+    if not np.array_equal(out[1].cpu().numpy(), res.pileup):
+        fail("panel", "the sub-index pass 2 differs from the words path's pileup")
+    times = {"words": [], "flat": []}
+    for i in range(PANEL_REPS):
+        for name in ("words", "flat") if i % 2 == 0 else ("flat", "words"):
+            times[name].append((words if name == "words" else flat)()[1])
+    med = {name: [statistics.median(t[j] for t in v) for j in (0, 1)]
+           for name, v in times.items()}
+    print(f"[panel] {kmers.shape[0]} k-mers, {len(batches)} batch(es); flat tally + sub-index "
+          f"pass 2 equal the words path (launches {flat_launches}); the flat tally walked "
+          f"{flat_lanes} postings, pass 2 {walk_lanes} for strain {PANEL_SELF}; first "
+          f"run pass 1 {cold[0]:.4f}s, pass 2 {cold[1]:.4f}s (uploads the genome ids, builds "
+          f"the sub-index); warm medians of {PANEL_REPS}, interleaved, pass 1 + pass 2: words "
+          f"{med['words'][0]:.6f} + {med['words'][1]:.6f}s, flat + sub-index "
+          f"{med['flat'][0]:.6f} + {med['flat'][1]:.6f}s; peak device memory of the flat run "
+          f"{flat_peak} bytes; index {index_bytes} bytes on the card ({dev.device_bytes()} with "
+          f"the genome ids and the sub-index), host layout {layout_s:.2f}s ({smi})", flush=True)
+
+
 def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
     """n more samples with each counter, in turns (host, device, device,
     host, ...); with n > 1 also each stage's median (q1, q3)."""
@@ -378,9 +535,7 @@ def main() -> int:
         fail("main", f"kernels never launched on the main path: {missing}")
 
     vcf = read_vcf(os.path.join(work, "gpu"))
-    passing = {int(f[1]) for f in (ln.split("\t") for ln in vcf.splitlines()
-                                   if ln and not ln.startswith("#")) if f[6] == "PASS"}
-    absent = [p + 1 for p in planted if p + 1 not in passing]
+    absent = [p + 1 for p in planted if p + 1 not in passing_majors(vcf)]
     if absent:
         fail("check", f"planted majors missing from the VCF: {absent}")
     ref = run_call(db + ".bkdb", fastq, os.path.join(work, "cpu"), torch.device("cpu"),
@@ -397,6 +552,7 @@ def main() -> int:
           f"{res.best} and the {tuple(res.pileup.shape)} pileup equal the CPU run; "
           f"CPU {stage_line('cpu', ref, 'host CPU')}", flush=True)
     count_launches = phase_count(db + ".bkdb", fastq, work, res, smi)
+    phase_panel(genome_paths[0], fastq, planted, work, smi)
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
 
     # each kernel's launches on its own path: K1 and K2 on the main path,

@@ -159,3 +159,52 @@ def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
         for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
             assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
     assert os.path.getsize(tmp_path / "gpu" / "s.vcf") > 0
+
+
+@pytest.mark.parametrize("case,path", [
+    ("g12", ("words", "saved")), ("polyA9", ("flat", "subindex")),
+    ("ungrouped", ("hist", "subindex"))])
+def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, case, path):
+    """Past the single-word histogram on the card: 12 strains (the
+    multi-word histogram, saved probe), 9 with a poly-A stretch (flat
+    tally, sub-index pass 2), 5 with postings permuted in their buckets
+    (single-word tally, sub-index pass 2); each equals the CPU run, with
+    K1 and K2 launched."""
+    from bronko_tpu.index.model import BronkoIndex
+
+    rng = np.random.default_rng(len(case))
+    base = make_genome(rng, 1500)
+    n = {"g12": 12, "polyA9": 9, "ungrouped": 5}[case]
+    genomes = []
+    for i in range(n):
+        g = bytearray(base)
+        for p in rng.integers(0, len(g), 8):
+            g[p] = b"ACGT"[(b"ACGT".index(g[p]) + 1) % 4]
+        if case == "polyA9":
+            g[1200:1200] = b"A" * 300
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    reads, _ = make_sample(base, rng, read_len=90, depth=300,
+                           major_positions={600: 0.9}, error_rate=0.004)
+    fq = str(tmp_path / "s.fastq.gz")
+    write_fastq(fq, reads)
+    index = build_index(21, genomes)
+    if case == "ungrouped":
+        bucket = np.repeat(np.arange(index.num_buckets), np.diff(index.offsets))
+        order = np.lexsort((rng.random(bucket.shape[0]), bucket))
+        index = BronkoIndex(k=21, keys=index.keys, offsets=index.offsets,
+                            post_loc=index.post_loc[order], post_meta=index.post_meta[order],
+                            files=index.files)
+    results = {}
+    for name, device in (("cpu", torch.device("cpu")), ("gpu", gpu)):
+        cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),
+                         output_pileup=True, batch_size=4096)
+        before = dict(cuda_lib.LAUNCHES)
+        (results[name],) = run_call(cfg, index, build_device_index(index, device))
+        assert results[name].path == path
+    assert all(cuda_lib.LAUNCHES[k] > before[k] for k in ("bucket_queries", "fold_table"))
+    assert results["gpu"].best == results["cpu"].best
+    np.testing.assert_array_equal(results["gpu"].tallies, results["cpu"].tallies)
+    np.testing.assert_array_equal(results["gpu"].pileup, results["cpu"].pileup)
+    for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+        assert open(tmp_path / "gpu" / f).read() == open(tmp_path / "cpu" / f).read()

@@ -233,14 +233,23 @@ def test_cli_exit_codes_for_failed_samples(synth, monkeypatch):
 
 
 def test_cli_refuses_an_index_outside_the_slice(tmp_path, synth, monkeypatch):
-    """Nine genomes need the multi-word histogram: exit 1, not a silent
-    fallback."""
-    _, _, (fq0, _) = synth
+    """Nine genomes, past the single-word histogram, once refused: the call
+    exits 0 and writes bronko_tpu's files (the multi-word histogram)."""
+    import bronko_tpu.cli as jax_cli
+
+    _, (ref, _), (fq0, _) = synth
     monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
     rng = np.random.default_rng(9)
-    genomes = []
-    for i in range(9):
+    seq = open(ref).read().split("\n", 1)[1].replace("\n", "").encode()
+    genomes = [ref]
+    for i in range(8):
+        g = bytearray(seq)
+        for p in rng.integers(0, len(g), 10):
+            g[p] = b"ACGT"[(b"ACGT".index(g[p]) + 1) % 4]
         genomes.append(str(tmp_path / f"g{i}.fasta"))
-        write_fasta(genomes[-1], f"g{i}", make_genome(rng, 200))
-    assert _exit_code(["call", "-g", *genomes, "-r", fq0,
-                       "-o", str(tmp_path / "out")]) == 1
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    out, jout = str(tmp_path / "out"), str(tmp_path / "jax")
+    assert cli.main(["call", "-g", *genomes, "-r", fq0, "-o", out, "--pileup"]) == 0
+    assert jax_cli.main(["call", "-g", *genomes, "-r", fq0, "-o", jout, "--pileup"]) == 0
+    assert len(_outputs(out)) == 3 and _outputs(out) == _outputs(jout)
+    assert "\tref\t" in _outputs(out)["bronko_overview.tsv"]

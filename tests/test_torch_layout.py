@@ -1,6 +1,9 @@
 """The port's DeviceIndex against bronko_tpu.index.layout.build_device_index:
-every main-path field array-equal, built from the host index and carried
-across from the JAX arrays (from_jax_arrays)."""
+every field array-equal, built from the host index and carried across from
+the JAX arrays (from_jax_arrays); and the layouts past the single-word
+main path mapped as bronko_tpu maps them."""
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -10,12 +13,16 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from bronko_tpu.call import engine as je  # noqa: E402
 from bronko_tpu.index import layout as jl  # noqa: E402
 from bronko_tpu.index.model import BronkoIndex, FileMeta, SeqMeta, pack_meta  # noqa: E402
+from bronko_tpu.ops.map import tally_save_jit, tally_save_words_jit  # noqa: E402
+from bronko_tpu_torch.call import engine as te  # noqa: E402
 from bronko_tpu_torch.index import layout as tl  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64, to_u64  # noqa: E402
 from bronko_tpu_torch.ops.map import _probe  # noqa: E402
 from tests.test_map import make_index, random_genome  # noqa: E402
+from tests.test_torch_map import _batches  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -44,14 +51,19 @@ def _panel(tmp_path, case):
 
 
 def _jax_arrays(jd):
+    jd.ensure_subindex()
     return dict(
         k=jd.k, keys=np.asarray(jd.keys), offsets=np.asarray(jd.offsets),
         hist=None if jd.hist is None else np.asarray(jd.hist),
+        hist_words=None if jd.hist_words is None else np.asarray(jd.hist_words),
+        postings=np.asarray(jd.postings),
         postings_local32=(None if jd.postings_local32 is None
                           else np.asarray(jd.postings_local32)),
         fid_grouped=jd.fid_grouped, file_bases=jd.file_bases,
         genome_lens=jd.genome_lens, seq_slices=jd.seq_slices,
-        max_bucket=jd.max_bucket, total_len=jd.total_len)
+        max_bucket=jd.max_bucket, total_len=jd.total_len,
+        g_keys=np.asarray(jd.g_keys), g_offsets=np.asarray(jd.g_offsets),
+        g_postings=np.asarray(jd.g_postings))
 
 
 def _assert_matches(td, jd):
@@ -63,6 +75,10 @@ def _assert_matches(td, jd):
     else:
         assert td.hist.numpy().dtype == np.asarray(jd.hist).dtype
         np.testing.assert_array_equal(td.hist.numpy(), np.asarray(jd.hist))
+    if jd.hist_words is None:
+        assert td.hist_words is None
+    else:
+        np.testing.assert_array_equal(td.hist_words.numpy(), np.asarray(jd.hist_words))
     np.testing.assert_array_equal(td.postings_local32.numpy(),
                                   np.asarray(jd.postings_local32))
     assert td.fid_grouped == jd.fid_grouped
@@ -83,20 +99,61 @@ def test_device_index_matches_jax(tmp_path, case, hist_dtype):
     td = tl.build_device_index(index, CPU)
     _assert_matches(td, jd)
     _assert_matches(tl.from_jax_arrays(**_jax_arrays(jd), device=CPU), jd)
-    if hist_dtype is None:
-        assert "histogram" in tl.unsupported_reason(td)
+    if hist_dtype is None:  # nine genomes: the multi-word histogram
+        assert td.hist is None and td.hist_words.shape == (index.num_buckets, 2)
+        assert td.tally_mode() == "words"
     else:
         assert td.hist.numpy().dtype == hist_dtype
-        assert tl.unsupported_reason(td) is None
+        assert td.tally_mode() == "hist"
 
 
-def test_unsupported_layouts_are_named(tmp_path):
-    jd = jl.build_device_index(_panel(tmp_path, "g4_contigs"))
-    arrays = _jax_arrays(jd)
-    ungrouped = tl.from_jax_arrays(**{**arrays, "fid_grouped": False}, device=CPU)
-    assert "grouped" in tl.unsupported_reason(ungrouped)
-    wide = tl.from_jax_arrays(**{**arrays, "postings_local32": None}, device=CPU)
-    assert "2^25" in tl.unsupported_reason(wide)
+def _jax_map(jd, kb, cb, mcfg):
+    """bronko_tpu's single-device dispatch (engine.py:780-870): tallies,
+    the selected genome and its pileup."""
+    kj, cj = jnp.asarray(kb), jnp.asarray(cb)
+    if (jd.hist is not None or jd.hist_words is not None) and jd.fid_grouped:
+        fn, hist = ((tally_save_jit, jd.hist) if jd.hist is not None
+                    else (tally_save_words_jit, jd.hist_words))
+        t, lanes, start, h = fn(kj, cj, jd.keys, jd.offsets, hist,
+                                jnp.zeros((jd.num_genomes, 3), jnp.int32), mcfg)
+        tallies = np.asarray(t).astype(np.int64)
+        best = je.pick_best_genome(tallies, jd)
+        pileup = je.run_pileup_saved(kj, cj, (start, h), jd, best, mcfg,
+                                     exact_lanes=int(lanes[best]))
+    else:
+        tallies = je.run_tally_pass(kj, cj, jd, mcfg)
+        best = je.pick_best_genome(tallies, jd)
+        pileup = je.run_pileup_pass(kj, cj, jd, best, mcfg, n_kmers=kb.size)
+    return tallies, best, np.asarray(pileup)
+
+
+@pytest.mark.parametrize("case,path", [
+    ("ungrouped", ("hist", "subindex")), ("wide", ("hist", "saved")),
+    ("g9", ("words", "saved"))])
+def test_unsupported_layouts_are_named(tmp_path, case, path):
+    """The layouts the port once refused map as bronko_tpu maps them:
+    postings not grouped by genome (the sub-index pass 2), the int64
+    postings of a genome of 2^25 bp or more, and nine genomes (the
+    multi-word histogram); each carried across from the JAX arrays."""
+    index = _panel(tmp_path, "g9" if case == "g9" else "g4_contigs")
+    jd = jl.build_device_index(index)
+    over = {"ungrouped": {"fid_grouped": False}, "wide": {"postings_local32": None},
+            "g9": {}}[case]
+    jd = replace(jd, **over)
+    td = tl.from_jax_arrays(**{**_jax_arrays(jd), **over}, device=CPU)
+    rng = np.random.default_rng(len(case))
+    files = [(f.name, [(s.name, s.seq) for s in f.sequences]) for f in index.files]
+    kb, cb = _batches(rng, files, 21)
+    batches = [(from_u64(kr, CPU), torch.from_numpy(cr)) for kr, cr in zip(kb, cb)]
+    pcfg = td.map_config(2, False)
+    p1 = te.run_pass1(batches, td, pcfg, kb.size)
+    assert p1.path == path
+    best = te.pick_best_genome(p1.tallies, td)
+    pileup = te.run_pass2(batches, td, pcfg, p1, best).numpy()
+    want_tallies, want_best, want_pileup = _jax_map(jd, kb, cb, jd.map_config(2, False))
+    np.testing.assert_array_equal(p1.tallies, want_tallies)
+    assert best == want_best is not None
+    np.testing.assert_array_equal(pileup, want_pileup)
 
 
 def _index_with_keys(keys, offsets):
@@ -124,7 +181,7 @@ def test_last_key_all_ones_still_hits():
     _assert_matches(td, jl.build_device_index(index))
 
     q = np.array([[5, (1 << 64) - 1, 7, 1 << 63, 0, (1 << 64) - 2, 9]], np.uint64)
-    row, hit = _probe(from_u64(q, CPU), td)
+    row, hit = _probe(from_u64(q, CPU), td.keys_ordered)
     assert hit.tolist() == [[True, True, False, True, False, False, True]]
     start = torch.where(hit, td.offsets[row], 0)
     end = torch.where(hit, td.offsets[row + 1], 0)
@@ -136,9 +193,9 @@ def test_last_key_all_ones_still_hits():
 
 
 def test_duplicate_keys_resolve_to_the_last_row():
-    """A sentinel-padded table with a real 2^64-1 bucket: after
-    fix_sentinel_collision the last equal row carries the real range, and
-    the probe (like the JAX merge probe) picks that row."""
+    """A sentinel-padded table with a real 2^64-1 bucket: after the JAX
+    layout's fix_sentinel_collision the last equal row carries the real
+    range, and the probe (like the JAX merge probe) picks that row."""
     ukeys = np.array([5, 9, (1 << 64) - 1], np.uint64)
     u_max = 6
     keys = np.full(u_max, jl.KEY_SENTINEL, np.uint64)
@@ -146,17 +203,14 @@ def test_duplicate_keys_resolve_to_the_last_row():
     offsets = np.zeros(u_max + 1, np.int32)
     offsets[:4] = [0, 2, 3, 7]
     offsets[4:] = 7
-    t_off, j_off = offsets.copy(), offsets.copy()
-    tl.fix_sentinel_collision(ukeys, t_off, u_max)
-    jl.fix_sentinel_collision(ukeys, j_off, u_max)
-    np.testing.assert_array_equal(t_off, j_off)
+    jl.fix_sentinel_collision(ukeys, offsets, u_max)
     assert tl.KEY_SENTINEL == jl.KEY_SENTINEL
 
     td = tl.from_jax_arrays(
-        k=31, keys=keys, offsets=t_off, hist=np.zeros(u_max, np.int32),
+        k=31, keys=keys, offsets=offsets, hist=np.zeros(u_max, np.int32),
         postings_local32=np.zeros(7, np.int32), fid_grouped=True,
         file_bases=[0], genome_lens=[100], seq_slices=[], max_bucket=4,
         total_len=100, device=CPU)
-    row, hit = _probe(from_u64(np.array([[(1 << 64) - 1, 5]], np.uint64), CPU), td)
+    row, hit = _probe(from_u64(np.array([[(1 << 64) - 1, 5]], np.uint64), CPU), td.keys_ordered)
     assert row.tolist() == [[u_max - 1, 0]] and hit.all()
     assert td.offsets[row[0, 0] + 1] - td.offsets[row[0, 0]] == 4

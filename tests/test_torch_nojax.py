@@ -1,6 +1,6 @@
 """The port needs nothing of JAX: its build + call (with the host and the
-device counter) run with jax blocked, and its sources import neither jax
-nor the JAX package's device modules."""
+device counter, and on a nine-genome panel) run with jax blocked, and its
+sources import neither jax nor the JAX package's device modules."""
 
 import os
 import re
@@ -49,6 +49,18 @@ SCRIPT = textwrap.dedent("""
                      "--counter", "device"]) == 0
     for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
         assert (open(os.path.join(tmp, "out_device", f)).read()
+                == open(os.path.join(tmp, "out", f)).read()), f
+    panel = [os.path.join(tmp, "ref.fasta")]  # nine genomes: the multi-word histogram
+    for i in range(8):
+        g = bytearray(genome)
+        for p in rng.integers(0, len(g), 6):
+            g[p] = b"ACGT"[(b"ACGT".index(g[p]) + 1) % 4]
+        panel.append(os.path.join(tmp, f"strain{i}.fasta"))
+        write_fasta(panel[-1], f"strain{i}", bytes(g))
+    assert cli.main(["call", "-g", *panel, "-r", os.path.join(tmp, "s.fastq.gz"),
+                     "-o", os.path.join(tmp, "out_panel"), "--pileup"]) == 0
+    for f in ("s.vcf", "s.tsv"):
+        assert (open(os.path.join(tmp, "out_panel", f)).read()
                 == open(os.path.join(tmp, "out", f)).read()), f
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
