@@ -19,7 +19,7 @@ single-device driver of the main path:
      (ops/map.pileup_from_saved) or through the genome's sub-index
      (ops/map.pileup_from_subindex); it comes back in one copy;
   6. the host runs the noise scan, the f64 filter cascade and the writers
-     (bronko_tpu.call.*).
+     (call/noise.py, call/variants.py, call/outputs.py).
 
 Batching cannot change a result: tallies are sums, the pileup sums and
 maxima. Each sample is isolated: a failure is logged and the run goes on.
@@ -27,28 +27,27 @@ maxima. Each sample is isolated: a failure is logged and the run goes on.
 
 from __future__ import annotations
 
-import functools
 import logging
 import os
-import subprocess
 import time
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
-from bronko_tpu.call.noise import baseline_noise
-from bronko_tpu.call.outputs import (
+from bronko_tpu_torch.call.noise import baseline_noise
+from bronko_tpu_torch.call.outputs import (
     SampleSummary, write_alignments, write_overview, write_pileup, write_vcf,
 )
-from bronko_tpu.call.variants import CallStats, VCFRecord, call_variants_for_seq
-from bronko_tpu.config import CallConfig
-from bronko_tpu.consts import KMER_COUNT_CAP
-from bronko_tpu.index.model import BronkoIndex
-from bronko_tpu.io import native
-from bronko_tpu.io.fastq import read_fastq_chunks
+from bronko_tpu_torch.call.variants import CallStats, VCFRecord, call_variants_for_seq
+from bronko_tpu_torch.config import CallConfig
+from bronko_tpu_torch.consts import KMER_COUNT_CAP
 from bronko_tpu_torch.index.layout import DeviceIndex
-from bronko_tpu_torch.ops.codec import from_u64
+from bronko_tpu_torch.index.model import BronkoIndex
+from bronko_tpu_torch.io import native
+from bronko_tpu_torch.io.fastq import read_fastq_chunks
+from bronko_tpu_torch.io.naming import clean_sample_id
+from bronko_tpu_torch.ops.codec import from_u64, kmer_to_string
 from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
     PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
@@ -76,21 +75,12 @@ class SampleResult:
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved' or 'subindex')
 
 
-@functools.cache
 def native_lib():
-    """The native counter library (bronko_tpu/native), built once per
-    process. Its sources rely on headers that pull in <cstdio>, which GCC
-    13's standard headers no longer do, so it is built here with that
-    header forced in; the JAX package's loader then finds the library up
-    to date and loads it."""
-    cxx = f"{os.environ.get('CXX', 'g++')} -include cstdio"
-    proc = subprocess.run(["make", "-C", native._NATIVE_DIR, f"CXX={cxx}"],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building the native library failed:\n{proc.stderr}")
+    """The native counter library (bronko_tpu_torch/native), built at first
+    use (io/native.py)."""
     lib = native.get_lib()
     if lib is None:
-        raise RuntimeError("the native library could not be loaded")
+        raise RuntimeError("the native library could not be built or loaded")
     return lib
 
 
@@ -283,9 +273,6 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
         cstats.total_kmers, cstats.total_kmers * index.k,
     )
     if cfg.keep_kmer_counts:
-        from bronko_tpu.io.naming import clean_sample_id
-        from bronko_tpu.ops.codec import kmer_to_string
-
         dump = os.path.join(cfg.output, clean_sample_id(display) + "_counts.txt")
         with open(dump, "w") as fh:
             for km, ct in zip(kmers.tolist(), counts.tolist()):

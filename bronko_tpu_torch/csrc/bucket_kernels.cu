@@ -11,20 +11,36 @@
 // The TPU kernels emulated u64 arithmetic on (hi, lo) u32 planes because
 // Mosaic has no 64-bit integers; Hopper has them natively, so every word
 // here is a uint64_t and u64 wrap-around (the bucket hash at k=31) is
-// plain unsigned overflow. Both kernels are bound by device memory, not
-// arithmetic: K1 reads 8 bytes and writes 8*(J+1)+1 per k-mer, K2 reads
-// 12 bytes per k-mer and writes 4*k. A thread computes one output row
-// (K1) or one output word (K2) entirely in registers, so nothing
-// intermediate touches memory. K1's (B, J) row-major store is strided
-// across a warp; staging it through shared memory for coalesced stores is
-// left for a later change.
+// plain unsigned overflow.
+//
+// K1 is bound by bytes at best: 8 read and 8*J + 9 written a k-mer (145
+// at k = 21, J = 16: 43 us for 1,000,003 k-mers at 3.35 TB/s). Its
+// arithmetic comes close to that: each of the k positions takes a 64-bit
+// shift, mask and multiply. So the kernel is compiled once for every k
+// (1-31) and picks its instance by a switch: the position loops unroll,
+// every shift is a constant and the weight k-1-i a constant factor. Each
+// position's pieces (base, cur, val, mu) are computed once, in one pass
+// that sums mu and, for a kept position, stores t_i = val_i - mu_i -
+// num_a_i*cur_i + num_a_i; bucket_i is sum_mu + 1 + t_i, the sum added as
+// the row is copied out. The (B, J) row-major output would be a strided
+// store if each thread wrote its own row (a warp's 32 rows lie 8*J bytes
+// apart), so a block of kRows k-mers stages its (kRows, J) tile in shared
+// memory, rows padded to an odd stride (J | 1 words) so that the row
+// writes of a half-warp hit distinct banks, and then writes the tile's
+// kRows*J contiguous words with 16-byte stores by consecutive threads.
+// The tile is sized by J at launch (18 KB at J = 16), so more blocks fit
+// an SM. canon and is_rc are one coalesced store each.
+//
+// K2 is bound by bytes too: 12 read and 4*k written a k-mer. A thread
+// computes one output word entirely in registers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K2's block
+constexpr int kRows = 128;     // K1's block: k-mers (threads) a block
 
 // Reverse complement of the low 2k bits: complement, reverse the 32 2-bit
 // groups of the word, shift the k meaningful groups down. Equal to the
@@ -39,52 +55,86 @@ __device__ __forceinline__ uint64_t revcomp(uint64_t x, int k) {
   return x >> (64 - 2 * k);
 }
 
-// mu_i and its pieces for wildcard position i of canonical k-mer c
-// (bronko_tpu/ops/buckets.py closed forms).
-struct Pos {
-  uint64_t base, cur, val, mu;
-};
+// One thread per k-mer; `keep` has bit i set for each kept wildcard
+// position i (J of them, written in position order). Dynamic shared
+// memory: kRows words of sum(mu) + 1, then the (kRows, J | 1) tile.
+template <int K>
+__global__ void __launch_bounds__(kRows)
+    bucket_queries_kernel(const uint64_t* __restrict__ kmers, int64_t n,
+                          uint32_t keep, int J, uint64_t* __restrict__ q,
+                          uint64_t* __restrict__ canon_out,
+                          uint8_t* __restrict__ is_rc_out) {
+  extern __shared__ uint64_t smem[];
+  uint64_t* sums = smem;
+  uint64_t* tile = smem + kRows;
+  const int stride = J | 1;
+  const int64_t row0 = (int64_t)blockIdx.x * kRows;
+  const int rows = n - row0 < kRows ? (int)(n - row0) : kRows;
+  const int r = threadIdx.x;
+  if (r < rows) {
+    const uint64_t fwd = kmers[row0 + r];
+    const uint64_t rc = revcomp(fwd, K);
+    const bool flag = fwd >= rc;
+    const uint64_t c = flag ? rc : fwd;
 
-__device__ __forceinline__ Pos position(uint64_t c, int k, int i) {
-  const int shift = 2 * (k - 1 - i);
-  Pos p;
-  p.base = (c >> shift) & 3ull;
-  p.cur = p.base << shift;
-  const uint64_t one_at = 1ull << shift;
-  p.val = c & (one_at - 1);
-  p.mu = p.base ? one_at + (p.cur >> 2) * (uint64_t)(k - 1 - i) : p.val;
-  return p;
-}
-
-__global__ void bucket_queries_kernel(const uint64_t* __restrict__ kmers,
-                                      int64_t n, int k, uint32_t keep, int J,
-                                      uint64_t* __restrict__ q,
-                                      uint64_t* __restrict__ canon_out,
-                                      uint8_t* __restrict__ is_rc_out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  const uint64_t fwd = kmers[b];
-  const uint64_t rc = revcomp(fwd, k);
-  const bool flag = fwd >= rc;
-  const uint64_t c = flag ? rc : fwd;
-
-  uint64_t sum_mu = 0;
-  for (int i = 0; i < k; ++i) sum_mu += position(c, k, i).mu;
-
-  // bucket_i = sum_mu - mu_i + val_i - num_a_i*cur_i + 1 + num_a_i, with
-  // num_a_i the count of 'A' bases strictly before i
-  uint64_t num_a = 0;
-  uint64_t* row = q + b * J;
-  int j = 0;
-  for (int i = 0; i < k; ++i) {
-    const Pos p = position(c, k, i);
-    if ((keep >> i) & 1u) {
-      row[j++] = sum_mu - p.mu + p.val - num_a * p.cur + 1 + num_a;
+    // bucket_i = sum_mu - mu_i + val_i - num_a_i*cur_i + 1 + num_a_i, with
+    // num_a_i the count of 'A' bases strictly before i
+    // (bronko_tpu/ops/buckets.py closed forms): the row keeps the terms
+    // of position i, sums[r] the sum_mu + 1 that the copy-out adds
+    uint64_t* row = tile + r * stride;
+    uint64_t sum_mu = 0;
+    uint32_t num_a = 0;
+    int j = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int shift = 2 * (K - 1 - i);
+      const uint32_t base = (uint32_t)(c >> shift) & 3u;
+      const uint64_t one_at = 1ull << shift;
+      const uint64_t val = c & (one_at - 1);
+      // with cur = base << shift: (cur >> 2) * (K-1-i) as
+      // (base * (K-1-i)) << (shift - 2) (0 at the last position, where
+      // K-1-i is 0), and num_a * cur as (num_a * base) << shift; the same
+      // bits mod 2^64, from one 32-bit multiply each
+      const uint64_t wcur = (uint64_t)(base * (K - 1 - i)) << (shift > 0 ? shift - 2 : 0);
+      const uint64_t mu = base ? one_at + wcur : val;
+      sum_mu += mu;
+      if ((keep >> i) & 1u) {
+        row[j++] = val - mu - ((uint64_t)(num_a * base) << shift) + num_a;
+      }
+      num_a += base == 0;
     }
-    num_a += (p.base == 0);
+    sums[r] = sum_mu + 1;
+    canon_out[row0 + r] = c;
+    is_rc_out[row0 + r] = flag;
   }
-  canon_out[b] = c;
-  is_rc_out[b] = flag;
+  __syncthreads();
+  if (J == 0) return;
+
+  // the tile's rows*J words are contiguous in q: word w is row w / J,
+  // column w % J, at tile[row * stride + column]. A thread copies the pair
+  // (w, w+1) with w = 2*threadIdx.x + 2*kRows*m, tracking its row and
+  // column by steps instead of a division each time.
+  const uint32_t W = (uint32_t)rows * J;
+  ulonglong2* __restrict__ out = reinterpret_cast<ulonglong2*>(q + row0 * J);
+  const uint32_t step = 2 * kRows;
+  const uint32_t step_rows = step / J, step_cols = step % J;
+  uint32_t w = 2 * threadIdx.x;
+  uint32_t wr = w / J, wc = w % J;
+  for (; w + 1 < W; w += step) {
+    const uint32_t a = wr * stride + wc;
+    const bool same_row = wc + 1 < (uint32_t)J;
+    const uint32_t b = same_row ? a + 1 : (wr + 1) * stride;
+    out[w / 2] = make_ulonglong2(tile[a] + sums[wr], tile[b] + sums[same_row ? wr : wr + 1]);
+    wc += step_cols;
+    wr += step_rows;
+    if (wc >= (uint32_t)J) {
+      wc -= J;
+      ++wr;
+    }
+  }
+  if ((W & 1) && threadIdx.x == 0) {  // an odd word count: the last word
+    q[row0 * J + W - 1] = tile[(rows - 1) * stride + J - 1] + sums[rows - 1];
+  }
 }
 
 // One thread per (k-mer b, position i): out[b*k+i] packs the canonical
@@ -125,11 +175,32 @@ extern "C" int bronko_bucket_queries(int device, const int64_t* kmers,
                                      uint8_t* is_rc, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 31 || J < 0 || J > k) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    bucket_queries_kernel<<<(unsigned)blocks_for(n), kThreads, 0, stream>>>(
-        reinterpret_cast<const uint64_t*>(kmers), n, k, keep, J,
-        reinterpret_cast<uint64_t*>(q), reinterpret_cast<uint64_t*>(canon),
-        is_rc);
+    const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
+    // at most (1 + 31) * 128 * 8 = 32 KB: no opt-in above 48 KB needed
+    const size_t smem = sizeof(uint64_t) * kRows * (1 + (J | 1));
+    const uint64_t* in = reinterpret_cast<const uint64_t*>(kmers);
+    uint64_t* qo = reinterpret_cast<uint64_t*>(q);
+    uint64_t* co = reinterpret_cast<uint64_t*>(canon);
+    switch (k) {
+#define BRONKO_K1_CASE(K)                                                   \
+  case K:                                                                   \
+    bucket_queries_kernel<K>                                                \
+        <<<blocks, kRows, smem, stream>>>(in, n, keep, J, qo, co, is_rc);   \
+    break;
+      BRONKO_K1_CASE(1) BRONKO_K1_CASE(2) BRONKO_K1_CASE(3) BRONKO_K1_CASE(4)
+      BRONKO_K1_CASE(5) BRONKO_K1_CASE(6) BRONKO_K1_CASE(7) BRONKO_K1_CASE(8)
+      BRONKO_K1_CASE(9) BRONKO_K1_CASE(10) BRONKO_K1_CASE(11)
+      BRONKO_K1_CASE(12) BRONKO_K1_CASE(13) BRONKO_K1_CASE(14)
+      BRONKO_K1_CASE(15) BRONKO_K1_CASE(16) BRONKO_K1_CASE(17)
+      BRONKO_K1_CASE(18) BRONKO_K1_CASE(19) BRONKO_K1_CASE(20)
+      BRONKO_K1_CASE(21) BRONKO_K1_CASE(22) BRONKO_K1_CASE(23)
+      BRONKO_K1_CASE(24) BRONKO_K1_CASE(25) BRONKO_K1_CASE(26)
+      BRONKO_K1_CASE(27) BRONKO_K1_CASE(28) BRONKO_K1_CASE(29)
+      BRONKO_K1_CASE(30) BRONKO_K1_CASE(31)
+#undef BRONKO_K1_CASE
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from bronko_tpu.index.model import (
+from bronko_tpu_torch.index.model import (
     CANON_SHIFT, FILE_MASK, FILE_SHIFT, IDX_MASK, SEQ_MASK, SEQ_SHIFT, BronkoIndex,
 )
 from bronko_tpu_torch.ops.codec import from_u64

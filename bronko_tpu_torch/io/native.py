@@ -1,0 +1,163 @@
+"""ctypes bindings for the native (C++) host components: the FASTQ reader,
+the k-mer counter and the noise scan.
+
+Counterpart of `bronko_tpu/io/native.py`, loading the port's own copy of
+the sources (`bronko_tpu_torch/native/`). The library is built at first
+use with make (g++ and zlib) into `native/build/`, which git ignores, and
+rebuilt whenever a source is newer. Callers fall back to the pure-Python
+implementations when it is unavailable.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+log = logging.getLogger("bronko")
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "build", "libbronko_io.so")
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build() -> bool:
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True, timeout=300)
+        return True
+    except subprocess.CalledProcessError as e:
+        log.debug("native build failed: %s", e.stderr.decode(errors="replace"))
+    except Exception as e:  # noqa: BLE001 — no make, a timeout
+        log.debug("native build failed: %s", e)
+    return False
+
+
+def get_lib():
+    """Load (building if needed) the native library, or None."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        # make is a no-op when the library is newer than every source; if
+        # it fails but a library exists, still try that one
+        if not _build() and not os.path.exists(_SO_PATH):
+            return None
+        try:
+            lib = ctypes.CDLL(_SO_PATH)
+        except OSError as e:
+            log.debug("native load failed: %s", e)
+            return None
+        lib.bronko_fastq_open.restype = ctypes.c_void_p
+        lib.bronko_fastq_open.argtypes = [ctypes.c_char_p]
+        lib.bronko_fastq_close.argtypes = [ctypes.c_void_p]
+        lib.bronko_fastq_read_chunk.restype = ctypes.c_int64
+        lib.bronko_fastq_read_chunk.argtypes = [
+            ctypes.c_void_p,
+            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.bronko_noise_scan.restype = None
+        lib.bronko_noise_scan.argtypes = [
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ]
+        lib.bronko_counter_create.restype = ctypes.c_void_p
+        lib.bronko_counter_create.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bronko_counter_destroy.argtypes = [ctypes.c_void_p]
+        lib.bronko_counter_count_fastq.restype = ctypes.c_int
+        lib.bronko_counter_count_fastq.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        for fn in ("total_reads", "total_kmers", "unique"):
+            f = getattr(lib, f"bronko_counter_{fn}")
+            f.restype = ctypes.c_int64
+            f.argtypes = [ctypes.c_void_p]
+        lib.bronko_counter_finalize.restype = ctypes.c_int64
+        lib.bronko_counter_finalize.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32]
+        lib.bronko_counter_extract.restype = None
+        lib.bronko_counter_extract.argtypes = [
+            ctypes.c_void_p,
+            np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        ]
+        _lib = lib
+        return _lib
+
+
+def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
+                       threads: int = 4):
+    """Count a FASTQ file's k-mers entirely in C++ (multithreaded pipeline).
+
+    Returns (kmers u64 sorted, counts int64, stats dict), with KMC -b
+    -ci<min> -cs<cap> semantics like ops/count.KmerCounter. `threads` is
+    the total thread budget; the C++ side picks the split."""
+    lib = get_lib()
+    assert lib is not None
+    h = lib.bronko_counter_create(k, max(1, threads))
+    if not h:
+        raise ValueError(f"k={k} outside the counter's supported range")
+    try:
+        rc = lib.bronko_counter_count_fastq(h, path.encode())
+        if rc == -1:
+            raise OSError(f"cannot open {path}")
+        if rc != 0:
+            raise ValueError(f"malformed FASTQ: {path}")
+        n = int(lib.bronko_counter_finalize(h, min_count, count_cap))
+        kmers = np.empty(n, np.uint64)
+        counts = np.empty(n, np.uint32)
+        if n:
+            lib.bronko_counter_extract(h, kmers, counts)
+        stats = dict(
+            total_reads=int(lib.bronko_counter_total_reads(h)),
+            total_kmers=int(lib.bronko_counter_total_kmers(h)),
+            unique_kmers=int(lib.bronko_counter_unique(h)),
+            unique_counted_kmers=n,
+        )
+        return kmers, counts.astype(np.int64), stats
+    finally:
+        lib.bronko_counter_destroy(h)
+
+
+def native_read_fastq_chunks(path: str, chunk_reads: int, max_len: int = 512):
+    """Yield (codes, lengths, n_reads) like io.fastq.read_fastq_chunks but
+    decoded by the C++ reader. Rows beyond n_reads stay padding (code 4)."""
+    lib = get_lib()
+    assert lib is not None
+    h = lib.bronko_fastq_open(path.encode())
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        while True:
+            codes = np.empty((chunk_reads, max_len), np.uint8)
+            lengths = np.zeros(chunk_reads, np.int32)
+            n = lib.bronko_fastq_read_chunk(h, codes, lengths, chunk_reads, max_len)
+            if n < 0:
+                raise ValueError(f"malformed FASTQ: {path}")
+            if n == 0:
+                break
+            yield codes, lengths, int(n)
+            if n < chunk_reads:
+                break
+    finally:
+        lib.bronko_fastq_close(h)
+
+
+def native_noise_scan(freqs: np.ndarray, taus: np.ndarray) -> np.ndarray:
+    lib = get_lib()
+    assert lib is not None
+    L = freqs.shape[0]
+    out = np.zeros((L, 3), np.float64)
+    lib.bronko_noise_scan(np.ascontiguousarray(freqs, np.float64), L,
+                          np.ascontiguousarray(taus, np.float64), taus.shape[0], out)
+    return out

@@ -29,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bronko_tpu.consts import KMER_COUNT_CAP
+from bronko_tpu_torch.consts import KMER_COUNT_CAP
 from bronko_tpu_torch.ops.codec import to_u64
 from bronko_tpu_torch.ops.cuda_lib import (
     LAUNCHES, check_cuda, check_k, library, raise_on, stream,

@@ -28,15 +28,20 @@ def gather_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K4. Same result as gather_plain for contiguous 1-D int32 CUDA
-    tensors on one device. Indices must lie in [0, U); the kernel does not
-    check (that would cost a sync) and writes 0 for one outside."""
+    tensors on one device, of any length and at any offset. Indices must
+    lie in [0, U); the kernel does not check (that would cost a sync) and
+    writes 0 for one outside."""
     if idx.device.type == "cpu":
         return gather_plain(tbl, idx)
     check_cuda(tbl, torch.int32, "tbl")
     check_cuda(idx, torch.int32, "idx")
     if tbl.device != idx.device:
         raise ValueError("tbl and idx must be on the same device")
-    out = torch.empty_like(idx)
+    # the kernel's 16-byte body starts at idx's first 16-byte boundary:
+    # out takes the same offset from one (idx may be a view that starts
+    # between two; the allocator's blocks start on one)
+    shift = (idx.data_ptr() % 16) // 4
+    out = torch.empty(idx.numel() + shift, dtype=torch.int32, device=idx.device)[shift:]
     if idx.numel():
         err = library().bronko_gather(
             idx.device.index or 0, tbl.data_ptr(), tbl.shape[0], idx.data_ptr(),

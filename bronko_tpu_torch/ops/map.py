@@ -37,7 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
-from bronko_tpu.ops.buckets import filtered_bucket_positions
+from bronko_tpu_torch.ops.buckets import filtered_bucket_positions
 from bronko_tpu_torch.ops.cuda_buckets import bucket_queries, fold_table
 
 # pileup tensor layout: (n_planes=4, T+1, 4 bases)

@@ -6,12 +6,16 @@ Phases, one line each; any failure exits non-zero:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the port's kernels (bronko_tpu_torch/csrc) with nvcc;
   3. kernels: each kernel on the card against its plain PyTorch version on
-     the same inputs (exact: torch.equal), with median times from CUDA
-     events: K1 bucket_queries and K2 fold_table at k = 15, 21, 31,
-     B = 1,000,003 k-mers with the k=31 wrap inputs; K3 pack_windows at
-     k = 15, 21, 31 on a chunk of 262,144 reads x 160 codes;
+     the same inputs (exact: torch.equal), with times from CUDA events
+     (median_ms) and the bound of each call (bound_ms): K1 bucket_queries
+     and K2 fold_table at k = 15, 21, 31, B = 1,000,003 k-mers with the
+     k=31 wrap inputs, and at the main path's batch (B = 152,679, k = 21);
+     K3 pack_windows at k = 15, 21, 31 on a chunk of 262,144 reads x 160
+     codes;
   4. gather: the gather probe (K4 against its plain version at 2^21
-     indices into 2^20 entries), its launches read around the probe;
+     indices into 2^20 entries, and against torch's own gathers, the
+     faster of which is its library_ms), its launches read around the
+     probe;
   5. main: the bench fixture (4 synthetic 29,900 bp genomes, 300,000 x
      150 bp reads, ~1,500x, seed 2024; cached in .smoke_cache/) through the
      port's CLI entry: `build`, then `call -d -r --pileup` on the card with
@@ -39,9 +43,10 @@ from __future__ import annotations
 
 import sys
 
-# The port reuses bronko_tpu's host modules, whose package __init__ imports
-# jax when it can; block it so this run provably needs nothing of JAX.
+# Block JAX and the JAX package, so this run shows that the port needs
+# nothing of either: importing one now raises ImportError.
 sys.modules["jax"] = None
+sys.modules["bronko_tpu"] = None
 
 import argparse  # noqa: E402
 import importlib.util  # noqa: E402
@@ -55,10 +60,10 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from bronko_tpu.index.store import load_index  # noqa: E402
 from bronko_tpu_torch import cli  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from bronko_tpu_torch.index.store import load_index  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops import map as tmap  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
@@ -74,9 +79,16 @@ READ_LEN = 150
 KERNEL_B = 1_000_003  # a multiple of no block size
 KERNEL_KS = (15, 21, 31)
 PACK_R, PACK_L = 262_144, 160  # a default chunk of 150 bp reads, trimmed
+MAIN_B = 152_679  # the bench fixture's unique k-mers: the main path's one batch
 PROBE_U, PROBE_N = 1 << 20, 1 << 21  # the gather probe: tests/profile_gather.py
 REPORT_K = 21  # the default k: the kernels line reports this k's times
-REPS = 20
+LAUNCHES_PER_RUN = 20  # launches between one pair of CUDA events
+RUNS = 5
+# a spin of ~10 ms on the card (at ~2 GHz) ahead of each timed run: the
+# host enqueues the whole run meanwhile, so a call whose Python wrapper
+# takes longer than its kernel is timed on the card, not on the host
+HOLD_CYCLES = 20_000_000
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 PANEL_STRAINS = 32  # README's SARS-scale panel: 4 histogram words of 8 genomes
 PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
 PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
@@ -98,19 +110,33 @@ def fail(phase: str, msg: str) -> None:
 
 
 def median_ms(fn) -> float:
-    """Median of REPS CUDA-event timings of fn(), after one warm-up."""
+    """fn()'s time on the card: one CUDA event pair around a run of
+    LAUNCHES_PER_RUN back-to-back calls, divided by the count; the median
+    of RUNS such runs, after one warm-up call. Each run is enqueued while
+    the card spins (HOLD_CYCLES), so it runs back to back; a call that
+    synchronises with the host still waits for it."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
-        fn()
+        for _ in range(LAUNCHES_PER_RUN):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / LAUNCHES_PER_RUN)
     return statistics.median(times)
+
+
+def bound_ms(inputs, outputs) -> float:
+    """The least time the card could take for a call that reads each input
+    once and writes each output once, at the device memory's rate: every
+    kernel here is bound by bytes (integer work, no tensor-core type)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def max_abs_err(got, want) -> float:
@@ -168,10 +194,28 @@ def _pack_inputs(rng, device):
     return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
 
 
+def _check_and_time(name: str, label: str, kernel, plain, inputs, smi: str, row: dict) -> dict:
+    """Hold kernel() against plain() (exact), time both and give the bound
+    of the kernel's call; prints one line and returns the numbers."""
+    got = kernel()
+    err = max_abs_err(got, plain())
+    torch.cuda.synchronize()
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    if err != 0.0:
+        fail("kernels", f"{name} differs from its plain version at {label}")
+    out = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
+           "bound_ms": bound_ms(inputs, got)}
+    print(f"[kernels] {name} {label}: equal; kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms (share "
+          f"{out['bound_ms'] / out['ms']:.3f}; mean of {LAUNCHES_PER_RUN} launches, "
+          f"median of {RUNS} runs; {smi})", flush=True)
+    return out
+
+
 def phase_kernels(smi: str) -> dict:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    rows = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    rows = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNELS}
     codes, lengths = _pack_inputs(rng, dev)
     for k in KERNEL_KS:
         kmers, counts = _kernel_inputs(k, rng, dev)
@@ -179,55 +223,83 @@ def phase_kernels(smi: str) -> dict:
         cases = {
             "bucket_queries": (
                 lambda: cuda_buckets.bucket_queries(kmers, k, positions),
-                lambda: cuda_buckets.bucket_queries_plain(kmers, k, positions)),
+                lambda: cuda_buckets.bucket_queries_plain(kmers, k, positions), (kmers,)),
             "fold_table": (
                 lambda: (cuda_buckets.fold_table(kmers, counts, k),),
-                lambda: (cuda_buckets.fold_table_plain(kmers, counts, k),)),
+                lambda: (cuda_buckets.fold_table_plain(kmers, counts, k),), (kmers, counts)),
             "pack_windows": (
                 lambda: count.pack_windows(codes, lengths, k),
-                lambda: count.pack_windows_plain(codes, lengths, k)),
+                lambda: count.pack_windows_plain(codes, lengths, k), (codes, lengths)),
         }
         full = tuple(range(k))  # --use-full-kmer keeps every position
-        if not torch.equal(cuda_buckets.bucket_queries(kmers, k, full)[0],
-                           cuda_buckets.bucket_queries_plain(kmers, k, full)[0]):
-            fail("kernels", f"bucket_queries differs at k={k} with all positions")
-        for name, (kernel, plain) in cases.items():
-            err = max_abs_err(kernel(), plain())
-            torch.cuda.synchronize()
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-            if err != 0.0:
-                fail("kernels", f"{name} differs from its plain version at k={k}")
-            ms, plain_ms = median_ms(kernel), median_ms(plain)
+        for got, want in zip(cuda_buckets.bucket_queries(kmers, k, full),
+                             cuda_buckets.bucket_queries_plain(kmers, k, full)):
+            if not torch.equal(got, want):
+                fail("kernels", f"bucket_queries differs at k={k} with all positions")
+        for name, (kernel, plain, inputs) in cases.items():
             shape = f"R={PACK_R} L={PACK_L}" if name == "pack_windows" else f"B={KERNEL_B}"
-            print(f"[kernels] {name} k={k} {shape}: equal; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (median of {REPS}; {smi})", flush=True)
+            out = _check_and_time(name, f"k={k} {shape}", kernel, plain, inputs, smi,
+                                  rows[name])
             if k == REPORT_K:
-                rows[name].update(ms=ms, plain_ms=plain_ms)
+                rows[name].update(out)
+    # K1 and K2 at the main path's batch: the fixture's one batch of k-mers
+    kmers, counts = (t[:MAIN_B] for t in _kernel_inputs(REPORT_K, rng, dev))
+    positions = tuple(filtered_bucket_positions(REPORT_K, 2, False))
+    _check_and_time("bucket_queries", f"k={REPORT_K} B={MAIN_B}",
+                    lambda: cuda_buckets.bucket_queries(kmers, REPORT_K, positions),
+                    lambda: cuda_buckets.bucket_queries_plain(kmers, REPORT_K, positions),
+                    (kmers,), smi, rows["bucket_queries"])
+    _check_and_time("fold_table", f"k={REPORT_K} B={MAIN_B}",
+                    lambda: (cuda_buckets.fold_table(kmers, counts, REPORT_K),),
+                    lambda: (cuda_buckets.fold_table_plain(kmers, counts, REPORT_K),),
+                    (kmers, counts), smi, rows["fold_table"])
     return rows
 
 
 def phase_gather(smi: str) -> dict:
     """The gather probe (tests/profile_gather.py's shapes): K4 against its
-    plain version, launches counted around the probe's own gathers."""
+    plain version, launches counted around the probe's own gathers; torch's
+    two gathers of the same function timed beside it, in turns."""
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     U, N = PROBE_U, PROBE_N
     tbl = torch.from_numpy(rng.integers(0, 1 << 30, size=U, dtype=np.int32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, U, size=N, dtype=np.int32)).to(dev)
-    ms, launches = drive(lambda: median_ms(lambda: cuda_gather.gather(tbl, idx)))
-    err = max_abs_err((cuda_gather.gather(tbl, idx),), (cuda_gather.gather_plain(tbl, idx),))
+    got = cuda_gather.gather(tbl, idx)
+    err = max_abs_err((got,), (cuda_gather.gather_plain(tbl, idx),))
     torch.cuda.synchronize()
     if err != 0.0:
         fail("gather", "gather differs from its plain version")
+    idx64 = idx.long()  # torch's own indexing gather, without the range check
+    calls = {
+        "kernel": lambda: cuda_gather.gather(tbl, idx),
+        "tbl[idx64]": lambda: tbl[idx64],
+        "index_select": lambda: torch.index_select(tbl, 0, idx),
+    }
+    times = {name: [] for name in calls}
+    launches = {"gather": 0}
+    for i in range(2):  # kernel, torch, torch, kernel
+        for name in calls if i == 0 else reversed(list(calls)):
+            if name == "kernel":
+                ms, counted = drive(lambda: median_ms(calls["kernel"]))
+                launches["gather"] += counted["gather"]
+            else:
+                ms = median_ms(calls[name])
+            times[name].append(ms)
     if launches["gather"] == 0:
         fail("gather", "the gather probe never launched its kernel")
+    ms = {name: statistics.median(t) for name, t in times.items()}
     plain_ms = median_ms(lambda: cuda_gather.gather_plain(tbl, idx))
-    idx64 = idx.long()  # torch's own indexing gather, without the range check
-    index_ms = median_ms(lambda: tbl[idx64])
-    print(f"[gather] U={U} N={N}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch indexing with int64 indices {index_ms:.4f} ms (median of {REPS}; {smi}); "
-          f"launches {launches['gather']}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches["gather"]}
+    library_ms = min(ms["tbl[idx64]"], ms["index_select"])
+    bound = bound_ms((tbl, idx), (got,))
+    print(f"[gather] U={U} N={N}: equal; kernel {ms['kernel']:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch tbl[idx64] {ms['tbl[idx64]']:.4f} ms, torch.index_select "
+          f"{ms['index_select']:.4f} ms, bound {bound:.4f} ms (share "
+          f"{bound / ms['kernel']:.3f}; each the mean of two medians of {RUNS} runs of "
+          f"{LAUNCHES_PER_RUN} launches, kernel and torch in turns; {smi}); launches "
+          f"{launches['gather']}", flush=True)
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": library_ms, "launches": launches["gather"]}
 
 
 def _synthetic():
@@ -563,6 +635,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+        "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
+        "library_ms": rows[name]["library_ms"],
     } for name, (replaces, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

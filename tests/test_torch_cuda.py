@@ -11,11 +11,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from bronko_tpu.config import CallConfig  # noqa: E402
-from bronko_tpu.index.build import build_index  # noqa: E402
-from bronko_tpu.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.call.engine import run_call  # noqa: E402
+from bronko_tpu_torch.config import CallConfig  # noqa: E402
+from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from bronko_tpu_torch.index.model import BronkoIndex  # noqa: E402
+from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_gather  # noqa: E402
 from bronko_tpu_torch.ops import cuda_buckets as cb, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
@@ -38,7 +39,8 @@ def _inputs(k, n, device, seed):
     kmers = rng.integers(0, 1 << (2 * k), size=n, dtype=np.uint64)
     if k == 31:  # the u64 wrap of the bucket hash
         top = (np.uint64(1) << np.uint64(62)) - np.uint64(1)
-        kmers[:1024] = top - rng.integers(0, 1 << 20, size=1024, dtype=np.uint64)
+        m = min(n, 1024)
+        kmers[:m] = top - rng.integers(0, 1 << 20, size=m, dtype=np.uint64)
     counts = rng.integers(0, 1_000_000, size=n, dtype=np.int32)
     return from_u64(kmers, device), torch.from_numpy(counts).to(device)
 
@@ -56,6 +58,24 @@ def test_kernels_equal_plain_on_the_card(gpu, k):
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["bucket_queries"] == before["bucket_queries"] + 2
     assert cuda_lib.LAUNCHES["fold_table"] == before["fold_table"] + 1
+
+
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 152_679])
+@pytest.mark.parametrize("k", range(1, 32))
+def test_bucket_queries_every_k_and_edge(gpu, k, B):
+    """K1 at every k it is built for, with the filtered positions (none at
+    k <= 5) and with all of them, at batches around its 128-row block and
+    at the main path's batch: equal to the plain version, one launch each."""
+    kmers, _ = _inputs(k, B, gpu, 1000 * k + B)
+    for positions in (tuple(filtered_bucket_positions(k, 2, False)), tuple(range(k))):
+        before = cuda_lib.LAUNCHES["bucket_queries"]
+        got = cb.bucket_queries(kmers, k, positions)
+        want = cb.bucket_queries_plain(kmers, k, positions)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["bucket_queries"] == before + 1
+        assert got[0].shape == (B, len(positions))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gpu):
@@ -103,6 +123,25 @@ def test_gather_equals_plain_on_the_card(gpu):
     assert torch.equal(cuda_gather.gather(tbl, idx), cuda_gather.gather_plain(tbl, idx))
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["gather"] == before + 1
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N", [1, 3, 5, (1 << 21) + 3])
+def test_gather_edges_equal_plain_on_the_card(gpu, N, offset):
+    """K4's scalar head and tail: lengths that are no multiple of its
+    vector width, and indices starting one element past a 16-byte
+    boundary (a view of a larger tensor)."""
+    rng = np.random.default_rng(N + offset)
+    U = 1 << 20
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, size=U, dtype=np.int32)).to(gpu)
+    base = torch.from_numpy(rng.integers(0, U, size=N + offset, dtype=np.int32)).to(gpu)
+    idx = base[offset:]
+    assert idx.data_ptr() % 16 == 4 * offset
+    before = cuda_lib.LAUNCHES["gather"]
+    got = cuda_gather.gather(tbl, idx)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["gather"] == before + 1
+    assert torch.equal(got, cuda_gather.gather_plain(tbl, idx))
 
 
 def test_count_and_gather_wrappers_reject_what_the_kernels_do_not_take(gpu):
@@ -170,8 +209,6 @@ def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, case, path):
     tally, sub-index pass 2), 5 with postings permuted in their buckets
     (single-word tally, sub-index pass 2); each equals the CPU run, with
     K1 and K2 launched."""
-    from bronko_tpu.index.model import BronkoIndex
-
     rng = np.random.default_rng(len(case))
     base = make_genome(rng, 1500)
     n = {"g12": 12, "polyA9": 9, "ungrouped": 5}[case]

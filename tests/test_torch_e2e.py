@@ -11,12 +11,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import bronko_tpu.call.engine as jax_engine  # noqa: E402
+import bronko_tpu.config as jax_config  # noqa: E402
+import bronko_tpu.index.build as jax_build  # noqa: E402
 import bronko_tpu.index.layout as jax_layout  # noqa: E402
-from bronko_tpu.config import CallConfig  # noqa: E402
-from bronko_tpu.index.build import build_index  # noqa: E402
 from bronko_tpu_torch import cli  # noqa: E402
 from bronko_tpu_torch.call.engine import run_call  # noqa: E402
+from bronko_tpu_torch.config import CallConfig  # noqa: E402
+from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
 from tests import test_golden  # noqa: E402
 from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
 
@@ -68,17 +71,19 @@ def test_run_call_matches_jax(synth, case):
         "paired_device": dict(first_pairs=[fq1], second_pairs=[fq0], output_pileup=True,
                               counter="device"),
     }[case]
-    index = build_index(21, genomes)
-    runs = [("jax", jax_engine.run_call, jax_layout.build_device_index(index), kw),
-            ("torch", run_call, build_device_index(index, CPU), kw)]
+    jindex = jax_build.build_index(21, genomes)
+    index = from_jax_index(jindex)
+    runs = [("jax", jax_engine.run_call, jax_config.CallConfig, jindex,
+             jax_layout.build_device_index(jindex), kw),
+            ("torch", run_call, CallConfig, index, build_device_index(index, CPU), kw)]
     if kw.get("counter") == "device":
-        runs.append(("torch_host", run_call, build_device_index(index, CPU),
+        runs.append(("torch_host", run_call, CallConfig, index, build_device_index(index, CPU),
                      {**kw, "counter": "host"}))
     outs = {}
-    for name, run, dev, kwargs in runs:
-        cfg = CallConfig(genomes=genomes, output=str(tmp / f"{case}_{name}"),
-                         batch_size=2048, chunk_reads=4096, **kwargs)
-        run(cfg, index, dev)
+    for name, run, config, idx, dev, kwargs in runs:
+        cfg = config(genomes=genomes, output=str(tmp / f"{case}_{name}"),
+                     batch_size=2048, chunk_reads=4096, **kwargs)
+        run(cfg, idx, dev)
         outs[name] = _outputs(cfg.output)
     want = outs["jax"]
     assert any(f.endswith(".vcf") for f in want)
@@ -116,8 +121,11 @@ def test_device_counter_reads_longer_than_the_native_rows(tmp_path, caplog):
 
 
 def test_golden_sample(tmp_path, monkeypatch):
-    """tests/test_golden.py's own pipeline, with the port in place of the
-    JAX engine and layout, reproduces tests/golden/."""
+    """tests/test_golden.py's own pipeline, with the port's config, index
+    builder, engine and layout in place of the JAX package's, reproduces
+    tests/golden/."""
+    monkeypatch.setattr(jax_config, "CallConfig", CallConfig)
+    monkeypatch.setattr(jax_build, "build_index", build_index)
     monkeypatch.setattr(jax_engine, "run_call", run_call)
     monkeypatch.setattr(jax_layout, "build_device_index",
                         lambda index: build_device_index(index, CPU))
@@ -141,8 +149,8 @@ def test_cli_build_and_call_match_jax(synth, monkeypatch):
     out = str(tmp / "cli_out")
     assert cli.main(["call", "-d", db + ".bkdb", "-r", fq0, "-o", out]) == 0
     jout = str(tmp / "cli_jax")
-    index = build_index(21, genomes)
-    jax_engine.run_call(CallConfig(db=db + ".bkdb", reads=[fq0], output=jout),
+    index = jax_build.build_index(21, genomes)
+    jax_engine.run_call(jax_config.CallConfig(db=db + ".bkdb", reads=[fq0], output=jout),
                         index, jax_layout.build_device_index(index))
     assert _outputs(out) == _outputs(jout)
 
@@ -187,9 +195,9 @@ def test_cli_device_counter_matches_jax(synth, monkeypatch):
     assert cli.main(["call", "-g", *genomes, "-r", fq0, "-o", out, "--pileup",
                      "--counter", "device"]) == 0
     jout = str(tmp / "cli_device_jax")
-    index = build_index(21, genomes)
-    jax_engine.run_call(CallConfig(genomes=genomes, reads=[fq0], output=jout,
-                                   output_pileup=True, counter="device"),
+    index = jax_build.build_index(21, genomes)
+    jax_engine.run_call(jax_config.CallConfig(genomes=genomes, reads=[fq0], output=jout,
+                                              output_pileup=True, counter="device"),
                         index, jax_layout.build_device_index(index))
     assert _outputs(out) == _outputs(jout)
 

@@ -19,6 +19,7 @@ from bronko_tpu.index.model import BronkoIndex, FileMeta, SeqMeta, pack_meta  # 
 from bronko_tpu.ops.map import tally_save_jit, tally_save_words_jit  # noqa: E402
 from bronko_tpu_torch.call import engine as te  # noqa: E402
 from bronko_tpu_torch.index import layout as tl  # noqa: E402
+from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64, to_u64  # noqa: E402
 from bronko_tpu_torch.ops.map import _probe  # noqa: E402
 from tests.test_map import make_index, random_genome  # noqa: E402
@@ -96,7 +97,7 @@ def _assert_matches(td, jd):
 def test_device_index_matches_jax(tmp_path, case, hist_dtype):
     index = _panel(tmp_path, case)
     jd = jl.build_device_index(index)
-    td = tl.build_device_index(index, CPU)
+    td = tl.build_device_index(from_jax_index(index), CPU)
     _assert_matches(td, jd)
     _assert_matches(tl.from_jax_arrays(**_jax_arrays(jd), device=CPU), jd)
     if hist_dtype is None:  # nine genomes: the multi-word histogram
@@ -177,7 +178,7 @@ def test_last_key_all_ones_still_hits():
     keys = np.array([5, 9, 1 << 63, (1 << 64) - 1], np.uint64)
     offsets = np.array([0, 2, 3, 5, 9])
     index = _index_with_keys(keys, offsets)
-    td = tl.build_device_index(index, CPU)
+    td = tl.build_device_index(from_jax_index(index), CPU)
     _assert_matches(td, jl.build_device_index(index))
 
     q = np.array([[5, (1 << 64) - 1, 7, 1 << 63, 0, (1 << 64) - 2, 9]], np.uint64)

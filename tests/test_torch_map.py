@@ -19,6 +19,7 @@ from bronko_tpu.index.layout import build_device_index as jax_build  # noqa: E40
 from bronko_tpu.ops.map import pileup_from_saved_jit, tally_save_jit  # noqa: E402
 from bronko_tpu_torch.call import engine as te  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
+from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 from bronko_tpu_torch.ops.map import pileup_from_saved, tally_save  # noqa: E402
 from tests.test_map import make_index, random_genome, sample_kmers  # noqa: E402
@@ -70,7 +71,7 @@ def test_passes_match_jax(tmp_path, case, k, full):
     files = _files(rng, case)
     index = make_index(tmp_path, files, k)
     jd = jax_build(index)
-    td = build_device_index(index, CPU)
+    td = build_device_index(from_jax_index(index), CPU)
     G = td.num_genomes
     assert td.hist is not None and td.fid_grouped
     kb, cb = _batches(rng, files, k)

@@ -27,7 +27,10 @@ from bronko_tpu.ops.map import (  # noqa: E402
 )
 from bronko_tpu_torch import cli  # noqa: E402
 from bronko_tpu_torch.call import engine as te  # noqa: E402
+from bronko_tpu_torch.config import CallConfig  # noqa: E402
 from bronko_tpu_torch.index import layout as tl  # noqa: E402
+from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
+from bronko_tpu_torch.index.store import load_index  # noqa: E402
 from bronko_tpu_torch.ops import map as tm  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64, to_u64  # noqa: E402
 from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
@@ -131,7 +134,7 @@ def test_layout_matches_jax(tmp_path, monkeypatch, name, wide):
     if wide:
         monkeypatch.setattr(tl, "LOCAL32_LIMIT", 1)
     jd = jl.build_device_index(index)
-    td = tl.build_device_index(index, CPU)
+    td = tl.build_device_index(from_jax_index(index), CPU)
     assert td.num_genomes == G and td.hist is None and jd.hist is None
     assert td.tally_mode() == ("words" if hist else "flat")
     assert (td.max_bucket > 255) == (hist is None)
@@ -223,7 +226,7 @@ def test_words_passes_match_jax(tmp_path, target):
     select `target`."""
     files, index = panel(tmp_path, "g17")
     jd = jl.build_device_index(index)
-    td = tl.build_device_index(index, CPU)
+    td = tl.build_device_index(from_jax_index(index), CPU)
     rng = np.random.default_rng(target)
     kb, cb = batches_from(rng, [files[target]], 21, n_exact=150, n_mut=30, n_junk=5)
     mcfg, pcfg = jd.map_config(2, False), td.map_config(2, False)
@@ -281,7 +284,7 @@ def test_tally_and_subindex_pass2_match_jax(tmp_path, name, mode, ungrouped):
     if ungrouped:
         index = permuted(index, 3)
     jd = jl.build_device_index(index)
-    td = tl.build_device_index(index, CPU)
+    td = tl.build_device_index(from_jax_index(index), CPU)
     assert td.fid_grouped == jd.fid_grouped == (not ungrouped)
     assert td.tally_mode() == mode or mode == "flat"
     rng = np.random.default_rng(len(name))
@@ -403,8 +406,6 @@ def cli_panels(tmp_path_factory):
 def test_cli_call_matches_jax(cli_panels, monkeypatch, name, path):
     """`python -m bronko_tpu_torch call --pileup` on the CPU writes
     bronko_tpu's VCF, pileup TSV and overview byte for byte."""
-    from bronko_tpu.index.store import load_index
-
     tmp, cases = cli_panels
     db, fq, truth = cases[name]
     monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
@@ -429,9 +430,6 @@ def test_run_call_with_int64_postings_matches_jax(cli_panels, monkeypatch):
     """The whole call with the int64 postings (the layout of a genome of
     2^25 bp or more) on the 13-strain panel and on the ungrouped one
     (the sub-index then holds lpos<<22 | meta)."""
-    from bronko_tpu.config import CallConfig
-    from bronko_tpu.index.store import load_index
-
     tmp, cases = cli_panels
     monkeypatch.setattr(tl, "LOCAL32_LIMIT", 1)
     for name in ("g13", "ungrouped"):
