@@ -31,15 +31,27 @@
 // The tile is sized by J at launch (18 KB at J = 16), so more blocks fit
 // an SM. canon and is_rc are one coalesced store each.
 //
-// K2 is bound by bytes too: 12 read and 4*k written a k-mer. A thread
-// computes one output word entirely in registers.
+// K2 is bound by bytes too: 12 read and 4*k written a k-mer (96 B at
+// k = 21: 28.7 us for 1,000,003 k-mers at 3.35 TB/s). A thread for each
+// record would need a division by k and the k-mer's reverse complement
+// again for each of its k records, and be bound by issued instructions.
+// So one thread takes one k-mer: the kernel is compiled for every k (the
+// same switch as K1), so every shift is a constant; the canonical form,
+// is_rc and the record's head (is_rc << 4 | count << 5) are computed
+// once, then its k records. A block of kFoldRows k-mers stages its (kFoldRows, k)
+// int32 tile in shared memory, rows at an odd stride (k | 1) so that a
+// half-warp's row writes hit distinct banks, and writes the block's
+// kFoldRows*k contiguous records (a multiple of 16 bytes, so every
+// block's output starts aligned) with 16-byte stores by consecutive
+// threads; at odd k the tile is the output's layout and is read back as
+// 16-byte vectors. The ragged last block writes its tail one by one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // K2's block
+constexpr int kFoldRows = 128;  // K2's block: k-mers (threads) a block
 constexpr int kRows = 128;     // K1's block: k-mers (threads) a block
 
 // Reverse complement of the low 2k bits: complement, reverse the 32 2-bit
@@ -137,33 +149,66 @@ __global__ void __launch_bounds__(kRows)
   }
 }
 
-// One thread per (k-mer b, position i): out[b*k+i] packs the canonical
-// base at i (bits 0-1), the complement of the canonical base at k-1-i
-// (bits 2-3), is_rc (bit 4) and the count (bits 5 and up). Built in
-// uint32_t: `count << 5` on a signed int is undefined on overflow, while
-// the JAX original wraps.
-__global__ void fold_table_kernel(const uint64_t* __restrict__ kmers,
-                                  const int32_t* __restrict__ counts,
-                                  int64_t n, int k,
-                                  int32_t* __restrict__ out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * k) return;
-  const int64_t b = t / k;
-  const int i = (int)(t - b * k);
-  const uint64_t fwd = kmers[b];
-  const uint64_t rc = revcomp(fwd, k);
-  const bool flag = fwd >= rc;
-  const uint64_t c = flag ? rc : fwd;
-  const uint32_t base = (uint32_t)((c >> (2 * (k - 1 - i))) & 3ull);
-  const uint32_t mirror = (uint32_t)((c >> (2 * i)) & 3ull);
-  const uint32_t rec = base | ((3u - mirror) << 2) | ((uint32_t)flag << 4) |
-                       ((uint32_t)counts[b] << 5);
-  out[t] = (int32_t)rec;
+// One thread per k-mer b: out[b*K+i] packs the canonical base at i (bits
+// 0-1), the complement of the canonical base at K-1-i (bits 2-3), is_rc
+// (bit 4) and the count (bits 5 and up). Built in uint32_t: `count << 5`
+// on a signed int is undefined on overflow, while the JAX original wraps.
+template <int K>
+__global__ void __launch_bounds__(kFoldRows)
+    fold_table_kernel(const uint64_t* __restrict__ kmers,
+                      const int32_t* __restrict__ counts, int64_t n,
+                      uint32_t* __restrict__ out) {
+  constexpr int kStride = K | 1;
+  __shared__ __align__(16) uint32_t tile[kFoldRows * kStride];
+  const int64_t row0 = (int64_t)blockIdx.x * kFoldRows;
+  const int rows = n - row0 < kFoldRows ? (int)(n - row0) : kFoldRows;
+  const int r = threadIdx.x;
+  if (r < rows) {
+    const uint64_t fwd = kmers[row0 + r];
+    const uint64_t rc = revcomp(fwd, K);
+    const bool flag = fwd >= rc;
+    const uint64_t c = flag ? rc : fwd;
+    const uint32_t head = ((uint32_t)flag << 4) | ((uint32_t)counts[row0 + r] << 5);
+    uint32_t* row = tile + r * kStride;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t base = (uint32_t)(c >> (2 * (K - 1 - i))) & 3u;
+      const uint32_t mirror = (uint32_t)(c >> (2 * i)) & 3u;
+      row[i] = base | ((3u - mirror) << 2) | head;
+    }
+  }
+  __syncthreads();
+
+  // the block's rows*K records are contiguous in out; record w is row
+  // w / K, column w % K, at tile[row * kStride + column]
+  const uint32_t total = (uint32_t)rows * K;
+  uint32_t* dst = out + row0 * K;
+  uint32_t w = 4 * threadIdx.x;
+  for (; w + 3 < total; w += 4 * kFoldRows) {
+    uint4 v;
+    if (K % 2) {  // kStride == K: the tile is laid out as the output
+      v = *reinterpret_cast<const uint4*>(tile + w);
+    } else {
+      v = make_uint4(tile[(w / K) * kStride + w % K], tile[((w + 1) / K) * kStride + (w + 1) % K],
+                     tile[((w + 2) / K) * kStride + (w + 2) % K],
+                     tile[((w + 3) / K) * kStride + (w + 3) % K]);
+    }
+    *reinterpret_cast<uint4*>(dst + w) = v;
+  }
+  for (; w < total; ++w) {  // the ragged last block: up to 3 records past the last vector
+    dst[w] = tile[(w / K) * kStride + w % K];
+  }
 }
 
-int64_t blocks_for(int64_t n) { return (n + kThreads - 1) / kThreads; }
-
 }  // namespace
+
+// The kernels' instances for every k the port takes (1-31), as the cases
+// of a switch on k.
+#define BRONKO_EACH_K(CASE)                                                   \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9)     \
+  CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16) CASE(17)     \
+  CASE(18) CASE(19) CASE(20) CASE(21) CASE(22) CASE(23) CASE(24) CASE(25)     \
+  CASE(26) CASE(27) CASE(28) CASE(29) CASE(30) CASE(31)
 
 // Each entry point selects `device` (this library links its own CUDA
 // runtime, whose current device is not PyTorch's), launches on `stream`,
@@ -189,16 +234,7 @@ extern "C" int bronko_bucket_queries(int device, const int64_t* kmers,
     bucket_queries_kernel<K>                                                \
         <<<blocks, kRows, smem, stream>>>(in, n, keep, J, qo, co, is_rc);   \
     break;
-      BRONKO_K1_CASE(1) BRONKO_K1_CASE(2) BRONKO_K1_CASE(3) BRONKO_K1_CASE(4)
-      BRONKO_K1_CASE(5) BRONKO_K1_CASE(6) BRONKO_K1_CASE(7) BRONKO_K1_CASE(8)
-      BRONKO_K1_CASE(9) BRONKO_K1_CASE(10) BRONKO_K1_CASE(11)
-      BRONKO_K1_CASE(12) BRONKO_K1_CASE(13) BRONKO_K1_CASE(14)
-      BRONKO_K1_CASE(15) BRONKO_K1_CASE(16) BRONKO_K1_CASE(17)
-      BRONKO_K1_CASE(18) BRONKO_K1_CASE(19) BRONKO_K1_CASE(20)
-      BRONKO_K1_CASE(21) BRONKO_K1_CASE(22) BRONKO_K1_CASE(23)
-      BRONKO_K1_CASE(24) BRONKO_K1_CASE(25) BRONKO_K1_CASE(26)
-      BRONKO_K1_CASE(27) BRONKO_K1_CASE(28) BRONKO_K1_CASE(29)
-      BRONKO_K1_CASE(30) BRONKO_K1_CASE(31)
+      BRONKO_EACH_K(BRONKO_K1_CASE)
 #undef BRONKO_K1_CASE
     }
   }
@@ -210,9 +246,19 @@ extern "C" int bronko_fold_table(int device, const int64_t* kmers,
                                  int32_t* out, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 31) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    fold_table_kernel<<<(unsigned)blocks_for(n * k), kThreads, 0, stream>>>(
-        reinterpret_cast<const uint64_t*>(kmers), counts, n, k, out);
+    const unsigned blocks = (unsigned)((n + kFoldRows - 1) / kFoldRows);
+    const uint64_t* in = reinterpret_cast<const uint64_t*>(kmers);
+    uint32_t* o = reinterpret_cast<uint32_t*>(out);
+    switch (k) {
+#define BRONKO_K2_CASE(K)                                                    \
+  case K:                                                                    \
+    fold_table_kernel<K><<<blocks, kFoldRows, 0, stream>>>(in, counts, n, o); \
+    break;
+      BRONKO_EACH_K(BRONKO_K2_CASE)
+#undef BRONKO_K2_CASE
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -108,11 +108,12 @@ def extract_and_count_chunk(codes: torch.Tensor, lengths: torch.Tensor, k: int):
 
 
 class KmerCounter:
-    """Sample-level counter: chunks are counted on `device` and merged at
-    finalize (the ci floor needs sample-wide counts)."""
+    """Sample-level counter: chunks are counted on `device` (no default:
+    the caller names the card or the CPU) and merged at finalize (the ci
+    floor needs sample-wide counts)."""
 
-    def __init__(self, k: int, min_count: int, count_cap: int | None = None,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, k: int, min_count: int, count_cap: int | None = None, *,
+                 device: torch.device):
         self.k = k
         self.min_count = min_count
         self.count_cap = KMER_COUNT_CAP if count_cap is None else count_cap

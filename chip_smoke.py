@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero:
      and K2 fold_table at k = 15, 21, 31, B = 1,000,003 k-mers with the
      k=31 wrap inputs, and at the main path's batch (B = 152,679, k = 21);
      K3 pack_windows at k = 15, 21, 31 on a chunk of 262,144 reads x 160
-     codes;
+     codes, at k = 21 on the device counter's second chunk (37,852 reads)
+     and on a row slice of 161-code rows that starts an odd byte past a
+     16-byte boundary;
   4. gather: the gather probe (K4 against its plain version at 2^21
      indices into 2^20 entries, and against torch's own gathers, the
      faster of which is its library_ms), its launches read around the
@@ -79,6 +81,8 @@ READ_LEN = 150
 KERNEL_B = 1_000_003  # a multiple of no block size
 KERNEL_KS = (15, 21, 31)
 PACK_R, PACK_L = 262_144, 160  # a default chunk of 150 bp reads, trimmed
+PACK_R2 = 37_852  # the bench fixture's second chunk with the device counter
+PACK_ODD_L = 161  # rows of 161 codes: row 1 starts 1 byte past a 16-byte boundary
 MAIN_B = 152_679  # the bench fixture's unique k-mers: the main path's one batch
 PROBE_U, PROBE_N = 1 << 20, 1 << 21  # the gather probe: tests/profile_gather.py
 REPORT_K = 21  # the default k: the kernels line reports this k's times
@@ -184,13 +188,13 @@ def _kernel_inputs(k: int, rng, device):
     return from_u64(kmers, device), torch.from_numpy(counts).to(device)
 
 
-def _pack_inputs(rng, device):
+def _pack_inputs(rng, device, R=PACK_R, L=PACK_L):
     """A chunk of reads as the device counter gets it: codes 0..5 with
-    about 2% >= 4, lengths 100..160."""
-    codes = rng.integers(0, 4, size=(PACK_R, PACK_L), dtype=np.uint8)
-    bad = rng.random((PACK_R, PACK_L), dtype=np.float32) < 0.02
+    about 2% >= 4, lengths 100..L."""
+    codes = rng.integers(0, 4, size=(R, L), dtype=np.uint8)
+    bad = rng.random((R, L), dtype=np.float32) < 0.02
     codes[bad] = rng.integers(4, 6, size=int(bad.sum()), dtype=np.uint8)
-    lengths = rng.integers(100, PACK_L + 1, size=PACK_R, dtype=np.int32)
+    lengths = rng.integers(100, L + 1, size=R, dtype=np.int32)
     return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
 
 
@@ -242,6 +246,21 @@ def phase_kernels(smi: str) -> dict:
                                   rows[name])
             if k == REPORT_K:
                 rows[name].update(out)
+    # K3 at the device counter's second chunk, and on a row slice (as
+    # KmerCounter.add_chunk packs one) whose codes start at an odd byte
+    k = REPORT_K
+    second = (codes[:PACK_R2], lengths[:PACK_R2])
+    big = _pack_inputs(rng, dev, PACK_R2 + 1, PACK_ODD_L)
+    odd = (big[0][1:], big[1][1:])
+    if odd[0].data_ptr() % 2 != 1:
+        fail("kernels", "the row slice of 161-code rows does not start at an odd byte")
+    for (c, ln), label in ((second, f"R={PACK_R2} L={PACK_L}"),
+                           (odd, f"R={PACK_R2} L={PACK_ODD_L} at byte "
+                                 f"{odd[0].data_ptr() % 16} past a 16-byte boundary")):
+        _check_and_time("pack_windows", f"k={k} {label}",
+                        lambda c=c, ln=ln: count.pack_windows(c, ln, k),
+                        lambda c=c, ln=ln: count.pack_windows_plain(c, ln, k),
+                        (c, ln), smi, rows["pack_windows"])
     # K1 and K2 at the main path's batch: the fixture's one batch of k-mers
     kmers, counts = (t[:MAIN_B] for t in _kernel_inputs(REPORT_K, rng, dev))
     positions = tuple(filtered_bucket_positions(REPORT_K, 2, False))

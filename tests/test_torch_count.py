@@ -62,6 +62,25 @@ def test_pack_windows_plain_matches_xla(k, shape):
     assert valid.any() and not valid.all()
 
 
+@pytest.mark.parametrize("edge", ["L=k", "L=k+1", "L=33", "one row of 4099"])
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_pack_windows_plain_matches_xla_at_the_kernel_edges(k, edge):
+    """K3's tile edges through its plain version: one window a row, two,
+    a row across a 32-code plane word, and one row longer than K3's
+    row tile (a column-tiled row on the card)."""
+    R, L = {"L=k": (70, k), "L=k+1": (70, k + 1), "L=33": (70, 33),
+            "one row of 4099": (1, 4099)}[edge]
+    codes, lengths = _codes(np.random.default_rng(k * L), R, L)
+    if R == 1:
+        lengths[0] = L - 5
+    want_words, want_valid = jax_count._pack_windows_xla(
+        jnp.asarray(codes), jnp.asarray(lengths), k)
+    words, valid = count.pack_windows_plain(*_torch(codes, lengths), k)
+    assert words.shape == valid.shape == (R, L - k + 1)
+    np.testing.assert_array_equal(to_u64(words), np.asarray(want_words))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+
+
 @pytest.mark.parametrize("k", [15, 21, 31])
 def test_pack_windows_plain_matches_pallas(k):
     """The Pallas kernel in interpret mode, as tests/test_count.py runs it:
@@ -101,7 +120,7 @@ def test_extract_and_count_chunk_matches_jax(k):
 
 def _count_both(chunks, k, min_count, count_cap=None):
     want = jax_count.KmerCounter(k, min_count, count_cap)
-    got = count.KmerCounter(k, min_count, count_cap)
+    got = count.KmerCounter(k, min_count, count_cap, device=torch.device("cpu"))
     for codes, lengths, n in chunks:
         want.add_chunk(codes, lengths, n)
         got.add_chunk(codes, lengths, n)
@@ -160,6 +179,13 @@ def test_kmer_counter_without_kmers(case):
     assert gk.dtype == np.uint64 and gc.dtype == np.int64
     assert gstats == count.CountStats(**vars(wstats))
     assert gstats.total_reads == sum(c[2] for c in chunks)
+
+
+def test_kmer_counter_needs_a_device():
+    """No default device: a counter never lands on the CPU unless asked."""
+    with pytest.raises(TypeError):
+        count.KmerCounter(21, 1)
+    assert count.KmerCounter(21, 1, device=torch.device("cpu")).device.type == "cpu"
 
 
 def test_pack_windows_refuses_rows_narrower_than_k():

@@ -4,6 +4,7 @@ card and the CPU run. Skipped without a card; on one:
 python -m pytest tests/test_torch_cuda.py -m cuda"""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -112,6 +113,87 @@ def test_pack_windows_equals_plain_on_the_card(gpu, k):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert got[2] == want[2]
     assert cuda_lib.LAUNCHES["pack_windows"] == before + 2
+
+
+# K3's row tile (rows a block takes whole), read from its source so the
+# edge cases follow it
+with open(os.path.join(cuda_lib.CSRC_DIR, "count_kernels.cu")) as _fh:
+    PACK_TILE_ROWS = int(re.search(r"constexpr int kTileRows = (\d+);", _fh.read()).group(1))
+
+
+def _edge_codes(R, L, seed):
+    """Codes 0..5 (about 1 in 20 >= 4) with an all-invalid row, and
+    lengths from 0 to past L (rows of length 0 and rows longer than L)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    bad = rng.random((R, L)) < 0.05
+    codes[bad] = rng.integers(4, 6, size=int(bad.sum()))
+    lengths = rng.integers(0, L + 8, size=R).astype(np.int32)
+    codes[R // 2] = 5
+    lengths[0] = L + 3
+    if R > 1:
+        lengths[-1] = 0
+    return codes, lengths
+
+
+def _pack_once(codes, lengths, k):
+    """K3 on the card, held exactly against its plain version, one launch."""
+    before = cuda_lib.LAUNCHES["pack_windows"]
+    got = count.pack_windows(codes, lengths, k)
+    want = count.pack_windows_plain(codes, lengths, k)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["pack_windows"] == before + 1
+    assert got[0].shape == got[1].shape == (codes.shape[0], codes.shape[1] - k + 1)
+    assert got[1].dtype == torch.bool
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("R", sorted({1, PACK_TILE_ROWS - 1, PACK_TILE_ROWS, PACK_TILE_ROWS + 1}))
+@pytest.mark.parametrize("L", ["k", "k+1", 33, 64, 160, 161, 4099])
+@pytest.mark.parametrize("k", range(1, 32))
+def test_pack_windows_every_k_and_edge(gpu, k, L, R):
+    """K3 at every k: one window a row (L = k), two, rows across plane
+    words, the device counter's L = 160, an odd L, and rows of 4,099
+    codes (column tiles); row counts around the row tile."""
+    L = {"k": k, "k+1": k + 1}.get(L, L)
+    codes, lengths = _edge_codes(R, L, 100_000 * k + 10 * L + R)
+    _pack_once(torch.from_numpy(codes).to(gpu), torch.from_numpy(lengths).to(gpu), k)
+
+
+@pytest.mark.parametrize("L", [161, 4099])
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("k", range(1, 32))
+def test_pack_windows_on_unaligned_row_slices(gpu, k, offset, L):
+    """K3 on a row slice of a larger chunk (as KmerCounter.add_chunk
+    packs one) whose codes start `offset` bytes past a 16-byte boundary."""
+    lo = next(i for i in range(16) if i * L % 16 == offset)
+    R = PACK_TILE_ROWS + 3 if L < 1000 else 5
+    codes, lengths = _edge_codes(lo + R + 2, L, 1000 * k + 10 * offset + L)
+    codes_t = torch.from_numpy(codes).to(gpu)[lo:lo + R]
+    lengths_t = torch.from_numpy(lengths).to(gpu)[lo:lo + R]
+    assert codes_t.is_contiguous() and codes_t.data_ptr() % 16 == offset
+    _pack_once(codes_t, lengths_t, k)
+
+
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 152_679])
+@pytest.mark.parametrize("k", range(1, 32))
+def test_fold_table_every_k_and_edge(gpu, k, B):
+    """K2 at every k it is built for, at batches around its 128-k-mer
+    block and at the main path's batch, with counts up to 2^31 - 1 (the
+    wrap of count << 5): equal to the plain version, one launch each."""
+    kmers, _ = _inputs(k, B, gpu, 2000 * k + B)
+    rng = np.random.default_rng(k + B)
+    counts = rng.integers(0, 2**31 - 1, size=B, dtype=np.int32, endpoint=True)
+    counts[0] = 2**31 - 1
+    counts = torch.from_numpy(counts).to(gpu)
+    before = cuda_lib.LAUNCHES["fold_table"]
+    got = cb.fold_table(kmers, counts, k)
+    want = cb.fold_table_plain(kmers, counts, k)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["fold_table"] == before + 1
+    assert got.shape == (B * k,) and got.dtype == torch.int32
+    assert torch.equal(got, want)
 
 
 def test_gather_equals_plain_on_the_card(gpu):
