@@ -1,14 +1,13 @@
 """Call orchestrator: count -> map -> select -> call -> write, per sample.
 
-Counterpart of `bronko_tpu/call/engine.py`, as a lean, sequential,
-single-device driver of the main path:
+Counterpart of `bronko_tpu/call/engine.py` on one device. Each sample
+(single-end [r], or paired [r1, r2] concatenated into one stream, as the
+reference's two map_kmers passes into shared pileups, call.rs:301-320)
+goes through:
 
-  1. the read k-mers are counted (cfg.counter): on the host by the native
-     C++ counter, or on the device by ops/count.py (window pack K3, sort,
-     merge); paired mates are counted separately and concatenated into one
-     stream, as the reference's two map_kmers passes into shared pileups
-     (call.rs:301-320);
-  2. the k-mers go to the device in batches of cfg.batch_size;
+  1. count (cfg.counter): the native C++ counter on the host, or the
+     device counter of ops/count.py (window pack K3, sort, merge);
+  2. h2d: the k-mers go to the device in batches of cfg.batch_size;
   3. pass 1 tallies perfect/variant/unique k-mers per genome; the tallies
      and the pass-2 walk lengths come back in one copy. With a histogram,
      postings grouped by genome and a probe within PROBE_BYTES_CAP it
@@ -17,19 +16,33 @@ single-device driver of the main path:
   4. the host picks the best genome (pick_best_genome, f64, first maximum);
   5. pass 2 builds the selected genome's int32 pileup from the saved probe
      (ops/map.pileup_from_saved) or through the genome's sub-index
-     (ops/map.pileup_from_subindex); it comes back in one copy;
-  6. the host runs the noise scan, the f64 filter cascade and the writers
+     (ops/map.pileup_from_subindex); d2h brings it back in one copy;
+  6. call: the noise scan, the f64 filter cascade and the writers
      (call/noise.py, call/variants.py, call/outputs.py).
 
+`run_call` pipelines a cohort as the JAX engine's `_run_call_inner` does
+(engine.py:1449-1717): count workers count and upload the coming samples
+(BRONKO_COUNT_WORKERS, at most workers + 1 submitted ahead), an
+inflate-ahead worker inflates their gzip for the host counter under
+BRONKO_INFLATE_BUDGET, the main thread runs each sample's device part in
+turn (h2d when not done on a worker, pass 1, selection, pass 2, d2h), and
+one caller thread runs step 6 with at most 2 samples in flight. Each
+sample is isolated: a failure is logged and the run goes on. Summaries,
+the overview and the alignment keep the input order. `process_sample` is
+the same pieces for one sample, in series.
+
 Batching cannot change a result: tallies are sums, the pileup sums and
-maxima. Each sample is isolated: a failure is logged and the run goes on.
+maxima. Neither can the pipeline: each sample's device part runs on the
+main thread in input order, and its writers on one thread in that order.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -53,6 +66,7 @@ from bronko_tpu_torch.ops.map import (
     PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
     pileup_from_saved, pileup_from_subindex, tally, tally_save,
 )
+from bronko_tpu_torch.utils.memory import log_memory_usage
 
 log = logging.getLogger("bronko")
 
@@ -61,6 +75,9 @@ STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
 # cap on the saved pass-1 probe, which stays on the device until pass 2
 # (JAX engine.py:51)
 PROBE_BYTES_CAP = 512 << 20
+# default bytes of inflated text the inflate-ahead worker may hold
+# (BRONKO_INFLATE_BUDGET; a gzip file is charged at 8x its size)
+INFLATE_BUDGET = 512 << 20
 
 
 @dataclass
@@ -84,23 +101,28 @@ def native_lib():
     return lib
 
 
-def count_sample(path: str, cfg: CallConfig, k: int,
-                 device: torch.device) -> tuple[np.ndarray, np.ndarray, CountStats]:
+def count_sample(path: str, cfg: CallConfig, k: int, device: torch.device,
+                 threads: int | None = None,
+                 text=None) -> tuple[np.ndarray, np.ndarray, CountStats]:
     """Count one FASTQ's k-mers (KMC -ci/-cs semantics). Returns (ascending
     uint64 k-mers, int64 counts, stats). cfg.counter: 'host' is the native
-    counter on cfg.threads threads; 'device' the device counter on
-    `device`; 'auto' the native counter when its library builds and loads,
-    else the device counter."""
+    counter on `threads` threads (default cfg.threads); 'device' the device
+    counter on `device`; 'auto' the native counter, and the device counter
+    after any exception from it (a library that fails to build or load, a
+    file it rejects), as the JAX engine chooses (engine.py:79-94). `text`
+    is the file's inflated text from the inflate-ahead worker (the native
+    counter's only; it closes it)."""
     if cfg.counter in ("auto", "host"):
         try:
             native_lib()
-        except RuntimeError as e:
+            kmers, counts, st = native.native_count_fastq(
+                path, k, cfg.min_kmers, KMER_COUNT_CAP,
+                threads=max(1, threads or cfg.threads), text=text)
+        except Exception as e:  # noqa: BLE001 — auto: any native failure
             if cfg.counter == "host":
                 raise
             log.debug("host counter unavailable (%s); using the device counter", e)
         else:
-            kmers, counts, st = native.native_count_fastq(
-                path, k, cfg.min_kmers, KMER_COUNT_CAP, threads=max(1, cfg.threads))
             log.info("Counted %s with the host counter", path)
             return kmers, counts, CountStats(**st)
     out = _count_sample_device(path, cfg, k, device, *_read_chunks(path, cfg))
@@ -137,14 +159,49 @@ def _count_sample_device(path: str, cfg: CallConfig, k: int, device: torch.devic
     return kmers, counts, counter.stats
 
 
-def count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device):
-    """Count one sample: single-end [r], or paired [r1, r2] concatenated."""
-    parts = [count_sample(p, cfg, k, device) for p in paths]
+@dataclass
+class Counted:
+    """One sample's count, from a count worker or the main thread."""
+    kmers: np.ndarray            # ascending uint64
+    counts: np.ndarray           # int64
+    cstats: CountStats
+    batches: list | None         # device batches (upload=True), else None
+    seconds: dict[str, float]    # 'count', and 'h2d' when uploaded
+
+
+def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
+               threads: int | None = None, texts: list | None = None,
+               upload: bool = False) -> Counted:
+    """Count one sample: single-end [r], or paired [r1, r2] concatenated.
+    `texts` holds one inflate-ahead future (or None) a path; every buffer
+    is closed here, so a failed mate never pins its sibling's (JAX
+    engine.py:1392-1405). With upload=True the device batches are built
+    here too, on the calling worker thread."""
+    t0 = time.perf_counter()
+    try:
+        parts = [count_sample(
+            p, cfg, k, device, threads=threads,
+            text=texts[i].result() if texts and texts[i] is not None else None)
+            for i, p in enumerate(paths)]
+    finally:
+        for f in texts or []:
+            if f is not None:
+                try:
+                    f.result().close()
+                except Exception:  # noqa: BLE001 — the inflate itself failed
+                    pass
     kmers = np.concatenate([p[0] for p in parts])
     counts = np.concatenate([p[1] for p in parts])
     cstats = CountStats(**{f.name: sum(getattr(p[2], f.name) for p in parts)
                            for f in fields(CountStats)})
-    return kmers, counts, cstats
+    t1 = time.perf_counter()
+    seconds = {"count": t1 - t0}
+    batches = None
+    if upload:
+        # a copy from pageable host memory returns once it is done
+        batches = to_batches(kmers, counts, cfg.batch_size, device)
+        seconds["h2d"] = time.perf_counter() - t1
+    return Counted(kmers, counts, cstats, batches, seconds)
 
 
 def to_batches(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
@@ -256,38 +313,56 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
-                   cfg: CallConfig) -> SampleResult:
-    """The whole main path for one sample (single-end [r] or paired
-    [r1, r2]); `seconds` holds each stage's wall time, the device synced at
-    every stage boundary."""
-    display = job[0]
-    t = [time.perf_counter()]
-    kmers, counts, cstats = count_job(job, cfg, index.k, dev.device)
-    t.append(time.perf_counter())
+def _log_counted(display: str, cstats: CountStats, cfg: CallConfig, k: int) -> None:
     log.info("%d reads counted from %s", cstats.total_reads, display)
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs)",
         cstats.unique_counted_kmers, cfg.min_kmers, cstats.unique_kmers,
-        cstats.total_kmers, cstats.total_kmers * index.k,
+        cstats.total_kmers, cstats.total_kmers * k,
     )
-    if cfg.keep_kmer_counts:
-        dump = os.path.join(cfg.output, clean_sample_id(display) + "_counts.txt")
-        with open(dump, "w") as fh:
-            for km, ct in zip(kmers.tolist(), counts.tolist()):
-                fh.write(f"{kmer_to_string(km, index.k)}\t{ct}\n")
 
+
+def _dump_counts(display: str, counted: Counted, cfg: CallConfig, k: int) -> None:
+    """--keep-kmer-info: every kept k-mer and its count."""
+    dump = os.path.join(cfg.output, clean_sample_id(display) + "_counts.txt")
+    with open(dump, "w") as fh:
+        for km, ct in zip(counted.kmers.tolist(), counted.counts.tolist()):
+            fh.write(f"{kmer_to_string(km, k)}\t{ct}\n")
+
+
+@dataclass
+class Mapped:
+    """One sample's device part, on the host."""
+    best: int
+    triple: tuple[int, int, int]  # perfect, variant, unmapped
+    tallies: np.ndarray
+    pileup: np.ndarray
+    path: tuple[str, str]
+    seconds: dict[str, float]     # 'pass1', 'pass2', 'd2h', and 'h2d' if done here
+
+
+def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
+             cfg: CallConfig) -> Mapped:
+    """The device part of one sample: h2d (unless a count worker uploaded
+    the batches), pass 1, selection, pass 2, d2h; the device synced at
+    every stage boundary."""
+    seconds = {}
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-    if len(mcfg.positions) == 0:
-        kmers, counts = kmers[:0], counts[:0]  # no bucket survives the trim
-    batches = to_batches(kmers, counts, cfg.batch_size, dev.device)
-    _sync(dev.device)
-    t.append(time.perf_counter())
+    # no bucket survives the trim: nothing to map
+    n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
+    t = [time.perf_counter()]
+    batches = counted.batches
+    if batches is None:
+        batches = to_batches(counted.kmers[:n_kmers], counted.counts[:n_kmers],
+                             cfg.batch_size, dev.device)
+        _sync(dev.device)
+        seconds["h2d"] = time.perf_counter() - t[0]
+        t = [time.perf_counter()]
 
-    p1 = run_pass1(batches, dev, mcfg, kmers.shape[0])
-    log.info("Tallied %d kmers in %.2fs", kmers.shape[0], time.perf_counter() - t[-1])
-    best, triple = _select_and_log(p1.tallies, index, dev, cstats)
+    p1 = run_pass1(batches, dev, mcfg, n_kmers)
+    log.info("Tallied %d kmers in %.2fs", n_kmers, time.perf_counter() - t[-1])
+    best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
     t.append(time.perf_counter())
 
     pileup_t = run_pass2(batches, dev, mcfg, p1, best)
@@ -296,12 +371,33 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
     t.append(time.perf_counter())
     pileup = pileup_t.cpu().numpy()
     t.append(time.perf_counter())
+    seconds.update(pass1=t[1] - t[0], pass2=t[2] - t[1], d2h=t[3] - t[2])
+    return Mapped(best, triple, p1.tallies, pileup, p1.path, seconds)
 
-    summary, records = _finish_one(display, index, dev, cfg, best, pileup, triple)
-    t.append(time.perf_counter())
-    seconds = {s: t[i + 1] - t[i] for i, s in enumerate(STAGES)}
-    return SampleResult(summary, records, p1.tallies, best, pileup, cstats.total_reads,
-                        seconds, p1.path)
+
+def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
+              mapped: Mapped, reads: int, seconds: dict[str, float]) -> SampleResult:
+    """Step 6 for one sample (the caller thread's work), timed there;
+    `seconds` holds the stages timed elsewhere."""
+    t0 = time.perf_counter()
+    summary, records = _finish_one(display, index, dev, cfg, mapped.best, mapped.pileup,
+                                   mapped.triple)
+    seconds = {**seconds, **mapped.seconds, "call": time.perf_counter() - t0}
+    return SampleResult(summary, records, mapped.tallies, mapped.best, mapped.pileup,
+                        reads, {s: seconds[s] for s in STAGES}, mapped.path)
+
+
+def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
+                   cfg: CallConfig) -> SampleResult:
+    """The whole main path for one sample (single-end [r] or paired
+    [r1, r2]), in series: the cohort pipeline's pieces on one thread."""
+    counted = _count_job(job, cfg, index.k, dev.device)
+    _log_counted(job[0], counted.cstats, cfg, index.k)
+    if cfg.keep_kmer_counts:
+        _dump_counts(job[0], counted, cfg, index.k)
+    mapped = _map_one(counted, index, dev, cfg)
+    return _call_one(job[0], index, dev, cfg, mapped, counted.cstats.total_reads,
+                     counted.seconds)
 
 
 def saves_probe(dev: DeviceIndex, n_kmers: int, J: int) -> bool:
@@ -354,23 +450,156 @@ def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Te
 
 
 def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex) -> list[SampleResult]:
-    """Per-sample pipeline driver: every -r file and every -1/-2 pair in
-    order, each isolated; then the overview and the alignment. Raises
-    SystemExit(1) when every sample failed. Returns the samples that
-    succeeded, in input order."""
+    """Every -r file and every -1/-2 pair through the cohort pipeline, then
+    the overview and the alignment. Returns the samples that succeeded, in
+    input order; raises SystemExit(1) when every sample failed. With
+    cfg.profile_dir the run is traced by torch.profiler (the device's
+    kernels too on a CUDA device) into a Chrome trace there, written even
+    when the run fails; a profiler that fails to start or stop only warns,
+    as the JAX engine's does (engine.py:1427-1446)."""
+    prof = None
+    if cfg.profile_dir:
+        try:
+            prof = _start_profiler(cfg.profile_dir, dev.device)
+            log.info("Profiling to %s", cfg.profile_dir)
+        except Exception as e:  # noqa: BLE001
+            log.warning("profiler unavailable: %s", e)
+    try:
+        return _run_call_inner(cfg, index, dev)
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                trace = os.path.join(cfg.profile_dir,
+                                     f"bronko.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+                prof.export_chrome_trace(trace)
+                log.info("Wrote the profiler trace %s", trace)
+            except Exception as e:  # noqa: BLE001
+                log.warning("profiler stop failed: %s", e)
+
+
+def _start_profiler(profile_dir: str, device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _count_workers(n_jobs: int) -> int:
+    """BRONKO_COUNT_WORKERS, by default 2 on hosts of 4 or more cores when
+    there is more than one sample, else 1 (JAX engine.py:1540-1547)."""
+    default = 2 if (os.cpu_count() or 1) >= 4 and n_jobs > 1 else 1
+    try:
+        return max(1, int(os.environ.get("BRONKO_COUNT_WORKERS", str(default))))
+    except ValueError:
+        log.warning("BRONKO_COUNT_WORKERS is not an integer; using 1")
+        return 1
+
+
+class _InflateBudget:
+    """Bytes of inflated text the inflate-ahead worker may hold at once
+    (BRONKO_INFLATE_BUDGET; 0 turns the prefetch off). A gzip file is
+    charged at 8x its size when submitted, and the charge comes back when
+    its buffer closes (JAX engine.py:1577-1621)."""
+
+    def __init__(self):
+        try:
+            self.limit = int(os.environ.get("BRONKO_INFLATE_BUDGET", str(INFLATE_BUDGET)))
+        except ValueError:
+            self.limit = INFLATE_BUDGET
+        self.held = 0
+        self._lock = threading.Lock()
+
+    def charge(self, path: str):
+        """Reserve one file's bytes; returns the callback that releases
+        them, or None (no prefetch) when the file is missing or over budget."""
+        try:
+            est = os.path.getsize(path)
+        except OSError:
+            return None
+        if path.endswith((".gz", ".bgz", ".bgzf")):
+            est *= 8
+        with self._lock:
+            if self.held + est > self.limit:
+                return None
+            self.held += est
+
+        def release():
+            with self._lock:
+                self.held -= est
+
+        return release
+
+
+def _run_call_inner(cfg: CallConfig, index: BronkoIndex,
+                    dev: DeviceIndex) -> list[SampleResult]:
     os.makedirs(cfg.output, exist_ok=True)
     jobs = [[p] for p in cfg.reads] + [
         [r1, r2] for r1, r2 in zip(cfg.first_pairs, cfg.second_pairs)]
+    workers = _count_workers(len(jobs))
+    threads = max(1, cfg.threads // workers)
+    upload = len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions) > 0
+    budget = None
+    if cfg.counter in ("auto", "host") and native.get_lib() is not None:
+        budget = _InflateBudget()
     results: list[SampleResult] = []
     failures: list[str] = []
-    for job in jobs:
-        label = job[0] if len(job) == 1 else f"{job[0]}, {job[1]}"
-        log.info("Processing %s", label)
-        try:
-            results.append(process_sample(job, index, dev, cfg))
-        except Exception:  # noqa: BLE001 — per-sample isolation
-            log.exception("Sample %s failed; continuing with remaining samples", label)
-            failures.append(job[0])
+
+    with ThreadPoolExecutor(max_workers=workers) as pool, \
+            ThreadPoolExecutor(max_workers=1) as call_pool, \
+            ThreadPoolExecutor(max_workers=1) as inflate_pool:
+        futures: list = []
+        call_futs: list = []  # (label, display, future)
+
+        def submit_upto(n: int) -> None:
+            while len(futures) < min(n, len(jobs)):
+                job = jobs[len(futures)]
+                texts = None
+                if budget is not None:
+                    texts = []
+                    for p in job:
+                        release = budget.charge(p)
+                        texts.append(None if release is None else inflate_pool.submit(
+                            native.native_read_inflate, p, release))
+                futures.append(pool.submit(_count_job, job, cfg, index.k, dev.device,
+                                           threads, texts, upload))
+
+        for ji, job in enumerate(jobs):
+            submit_upto(ji + 1 + workers)
+            # release the future: it would hold the sample's k-mers and
+            # device batches for the rest of the run
+            fut, futures[ji] = futures[ji], None
+            display = job[0]
+            label = display if len(job) == 1 else f"{job[0]}, {job[1]}"
+            log.info("Processing %s", label)
+            try:
+                counted = fut.result()
+                _log_counted(display, counted.cstats, cfg, index.k)
+                log_memory_usage("Finished counting kmers", dev.device)
+                if cfg.keep_kmer_counts:
+                    _dump_counts(display, counted, cfg, index.k)
+                mapped = _map_one(counted, index, dev, cfg)
+                # the caller thread runs this sample while the next one
+                # maps; at most 2 samples wait for it
+                if len(call_futs) >= 2:
+                    wait([call_futs[-2][2]])
+                call_futs.append((label, display, call_pool.submit(
+                    _call_one, display, index, dev, cfg, mapped,
+                    counted.cstats.total_reads, counted.seconds)))
+            except Exception:  # noqa: BLE001 — per-sample isolation
+                log.exception("Sample %s failed; continuing with remaining samples", label)
+                failures.append(display)
+
+        for label, display, cf in call_futs:
+            try:
+                results.append(cf.result())
+                log_memory_usage("Called variants successfully", dev.device)
+            except Exception:  # noqa: BLE001 — per-sample isolation
+                log.exception("Sample %s failed; continuing with remaining samples", label)
+                failures.append(display)
 
     if failures and not results:
         log.error("All samples failed")

@@ -5,7 +5,7 @@ flags, defaults and error exits) and of its `build`. The device comes from
 BRONKO_PLATFORM, as in the JAX package: `gpu` (the
 default) runs on the current CUDA device and exits 1 when there is none;
 `cpu` runs the kernels' plain PyTorch versions on the CPU. Flags outside
-this port's slice exit 1 and point to ROADMAP.md.
+this port's slice (the multi-device ones) exit 1 and point to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -130,11 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "rank 0 writes overview/alignment). Exclusive "
                         "with --mesh; assumes a shared output filesystem")
     c.add_argument("--profile-dir", dest="profile_dir", default=None,
-                   help="Write a jax.profiler trace of the run to this directory")
+                   help="Write a torch.profiler trace of the run to this directory")
     c.add_argument("--device-build", dest="device_build", default="auto",
                    choices=("auto", "on", "off"),
                    help="Build the device index on-chip from genome codes "
-                        "(auto: on for TPU backends; off under --mesh)")
+                        "(auto: on for CUDA devices; off under --mesh)")
     c.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator address host:port "
                         "(multi-host; omit on TPU pods for auto-detection)")
@@ -181,11 +181,25 @@ def call_config(args) -> CallConfig:
                          if hasattr(args, f)})
 
 
+def builds_on_device(cfg: CallConfig, device: torch.device) -> bool:
+    """--device-build: 'on' builds the device index on `device`, 'off' on
+    the host; 'auto' on the device when it is a CUDA device, the rule of
+    the JAX package, whose auto builds on every backend but the CPU
+    (bronko_tpu/cli.py:165-172)."""
+    if cfg.device_build == "auto":
+        return device.type == "cuda"
+    return cfg.device_build == "on"
+
+
 def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
-    """Validate, build the index on the host, map and call every sample on
-    `device` (default: resolve_device()). Returns the engine's per-sample
-    results; exits 2 when some samples failed."""
+    """Validate, build the index (on the host, or from the genomes'
+    sequences on `device`: index/device_build.py), map and call every
+    sample on `device` (default: resolve_device()). Returns the engine's
+    per-sample results; exits 2 when some samples failed."""
     from bronko_tpu_torch.call.engine import run_call
+    from bronko_tpu_torch.index.device_build import (
+        build_device_index_on_device, device_build,
+    )
     from bronko_tpu_torch.index.layout import build_device_index
 
     cfg.validate()
@@ -193,25 +207,28 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
         _refuse("--mesh")
     if cfg.shard_samples:
         _refuse("--shard-samples")
-    if cfg.device_build == "on":
-        _refuse("--device-build on")
-    if cfg.profile_dir:
-        _refuse("--profile-dir")
     if device is None:
         device = resolve_device()
+    on_device = builds_on_device(cfg, device)
     try:
         if cfg.genomes:
             log.info("Creating bronko index from provided reference genomes")
-            index = build_index(cfg.kmer, cfg.genomes)
+            if on_device:
+                index, dev = build_device_index_on_device(cfg.kmer, cfg.genomes, device)
+            else:
+                index = build_index(cfg.kmer, cfg.genomes)
         else:
             log.info("Reading in provided bronko index")
             index = load_index(cfg.db, expect_k=cfg.kmer)
+            if on_device:
+                dev = device_build(index, device)
     except Exception as e:  # noqa: BLE001 — corrupt/truncated .bkdb files
         # raise IndexError/struct.error/BadZipFile from the decoders; every
         # load failure gets the reference's clean error + exit 1
         log.error("%s | Unable to build/read index, exiting", e)
         raise SystemExit(1) from None
-    dev = build_device_index(index, device)
+    if not on_device:
+        dev = build_device_index(index, device)
     results = run_call(cfg, index, dev)
     if len(results) < len(cfg.reads) + len(cfg.first_pairs):
         raise SystemExit(2)  # partial failure: some samples were skipped

@@ -86,8 +86,10 @@ class DeviceIndex:
     # when postings_local32 is None
     postings: torch.Tensor | None
     device: torch.device
-    # host sources of the arrays built on first use: the (P,) genome id of
-    # every posting, and genome g's (keys uint64, offsets, postings)
+    # sources of the arrays built on first use: the (P,) genome id of every
+    # posting (host), and genome g's (keys as uint64 bits, offsets,
+    # postings), host arrays or tensors (the device build cuts them from
+    # its own tensors and passes its genome ids as _fids)
     fid_source: Callable[[], np.ndarray] = field(repr=False, default=None)
     subindex_source: Callable[[int], tuple] = field(repr=False, default=None)
     _fids: torch.Tensor | None = field(repr=False, default=None)
@@ -126,14 +128,18 @@ class DeviceIndex:
         return self._fids
 
     def subindex(self, g: int) -> SubIndex:
-        """Genome g's sub-index, built on the host and uploaded at first
-        use, then cached."""
+        """Genome g's sub-index, from subindex_source at first use (host
+        arrays are uploaded), then cached."""
         if g not in self._subindex:
             keys, offsets, postings = self.subindex_source(g)
+            if not isinstance(keys, torch.Tensor):  # host arrays
+                keys = from_u64(np.asarray(keys, np.uint64), self.device)
+                offsets = torch.from_numpy(np.array(offsets, np.int32))
+                postings = torch.from_numpy(np.array(postings))
             self._subindex[g] = SubIndex(
-                keys_ordered=from_u64(np.asarray(keys, np.uint64), self.device) ^ SIGN_BIT,
-                offsets=torch.from_numpy(np.array(offsets, np.int32)).to(self.device),
-                postings=torch.from_numpy(np.array(postings)).to(self.device))
+                keys_ordered=keys.to(self.device) ^ SIGN_BIT,
+                offsets=offsets.to(self.device, torch.int32),
+                postings=postings.to(self.device))
         return self._subindex[g]
 
     def device_bytes(self) -> int:

@@ -6,6 +6,11 @@ the sources (`bronko_tpu_torch/native/`). The library is built at first
 use with make (g++ and zlib) into `native/build/`, which git ignores, and
 rebuilt whenever a source is newer. Callers fall back to the pure-Python
 implementations when it is unavailable.
+
+`native_read_inflate` reads and inflates one FASTQ into a C++-owned buffer
+(`InflatedText`) that `native_count_fastq(..., text=)` then counts: the
+engine's inflate-ahead worker overlaps one sample's single-threaded inflate
+with another's multi-threaded parse and count.
 """
 
 from __future__ import annotations
@@ -91,28 +96,93 @@ def get_lib():
             np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
         ]
+        lib.bronko_read_inflate.restype = ctypes.c_void_p
+        lib.bronko_read_inflate.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+        lib.bronko_buffer_data.restype = ctypes.c_void_p
+        lib.bronko_buffer_data.argtypes = [ctypes.c_void_p]
+        lib.bronko_buffer_free.restype = None
+        lib.bronko_buffer_free.argtypes = [ctypes.c_void_p]
+        lib.bronko_counter_count_text.restype = ctypes.c_int
+        lib.bronko_counter_count_text.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
         _lib = lib
         return _lib
 
 
+class InflatedText:
+    """Handle to a C++-owned inflated FASTQ text (bronko_read_inflate).
+    `handle` is None when the file was over the whole-buffer cap or could
+    not be read: the counter then reads the path itself. `on_close` fires
+    once, at the first close() (the engine returns the buffer's bytes to
+    its inflate-ahead budget there); close() is idempotent."""
+
+    def __init__(self, handle, size: int, on_close=None):
+        self.handle = handle
+        self.size = size
+        self._on_close = on_close
+
+    def close(self):
+        if self.handle is not None:
+            get_lib().bronko_buffer_free(self.handle)
+            self.handle = None
+        if self._on_close is not None:
+            cb, self._on_close = self._on_close, None
+            cb()
+
+    def __del__(self):  # backstop; the engine closes explicitly
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def native_read_inflate(path: str, on_close=None) -> InflatedText:
+    """Read and inflate one FASTQ on the calling thread (the C call
+    releases the GIL)."""
+    lib = get_lib()
+    assert lib is not None
+    size = ctypes.c_int64()
+    try:
+        h = lib.bronko_read_inflate(path.encode(), ctypes.byref(size))
+    except Exception:  # noqa: BLE001 — the counter reads the path instead
+        h = None
+    return InflatedText(h, int(size.value), on_close=on_close)
+
+
+def _count_into(lib, h, path: str, text: InflatedText | None) -> None:
+    """Count one file into counter handle h: from the inflated text when
+    there is one (closed here), else from the path. Maps the C return
+    codes to exceptions."""
+    if text is not None and text.handle is not None:
+        try:
+            rc = lib.bronko_counter_count_text(
+                h, lib.bronko_buffer_data(text.handle), text.size)
+        finally:
+            text.close()
+    else:
+        rc = lib.bronko_counter_count_fastq(h, path.encode())
+    if rc == -1:
+        raise OSError(f"cannot open {path}")
+    if rc != 0:
+        raise ValueError(f"malformed FASTQ: {path}")
+
+
 def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
-                       threads: int = 4):
+                       threads: int = 4, text: InflatedText | None = None):
     """Count a FASTQ file's k-mers entirely in C++ (multithreaded pipeline).
 
     Returns (kmers u64 sorted, counts int64, stats dict), with KMC -b
     -ci<min> -cs<cap> semantics like ops/count.KmerCounter. `threads` is
-    the total thread budget; the C++ side picks the split."""
+    the total thread budget; the C++ side picks the split. `text` (from
+    native_read_inflate) skips the read and inflate; it is closed here."""
     lib = get_lib()
     assert lib is not None
     h = lib.bronko_counter_create(k, max(1, threads))
     if not h:
         raise ValueError(f"k={k} outside the counter's supported range")
     try:
-        rc = lib.bronko_counter_count_fastq(h, path.encode())
-        if rc == -1:
-            raise OSError(f"cannot open {path}")
-        if rc != 0:
-            raise ValueError(f"malformed FASTQ: {path}")
+        _count_into(lib, h, path, text)
         n = int(lib.bronko_counter_finalize(h, min_count, count_cap))
         kmers = np.empty(n, np.uint64)
         counts = np.empty(n, np.uint32)

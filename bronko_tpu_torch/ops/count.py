@@ -32,7 +32,7 @@ import torch
 from bronko_tpu_torch.consts import KMER_COUNT_CAP
 from bronko_tpu_torch.ops.codec import to_u64
 from bronko_tpu_torch.ops.cuda_lib import (
-    LAUNCHES, check_cuda, check_k, library, raise_on, stream,
+    check_cuda, check_k, count_launch, library, raise_on, stream,
 )
 
 __all__ = ["CountStats", "KmerCounter", "extract_and_count_chunk",
@@ -93,7 +93,7 @@ def pack_windows(codes: torch.Tensor, lengths: torch.Tensor, k: int):
             codes.device.index or 0, codes.data_ptr(), lengths.data_ptr(), R, L, k,
             words.data_ptr(), valid.data_ptr(), stream(codes))
         raise_on(err, "pack_windows")
-        LAUNCHES["pack_windows"] += 1
+        count_launch("pack_windows")
     return words, valid
 
 

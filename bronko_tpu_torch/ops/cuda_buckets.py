@@ -7,8 +7,8 @@ port's other kernels by `ops/cuda_lib.py`.
 
 Dispatch follows the input's device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel. Nothing falls back from one to the
-other. Each wrapper adds one to `cuda_lib.LAUNCHES[name]` where it
-launches its kernel.
+other. Each wrapper adds one to `cuda_lib.LAUNCHES[name]`
+(`cuda_lib.count_launch`) where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from bronko_tpu_torch.ops.buckets import assign_buckets
 from bronko_tpu_torch.ops.codec import canonical
 from bronko_tpu_torch.ops.cuda_lib import (
-    LAUNCHES, check_cuda, check_k, library, raise_on, stream,
+    check_cuda, check_k, count_launch, library, raise_on, stream,
 )
 
 __all__ = ["bucket_queries", "bucket_queries_plain", "fold_table", "fold_table_plain"]
@@ -55,7 +55,7 @@ def bucket_queries(kmers: torch.Tensor, k: int, positions: tuple[int, ...]):
             kmers.device.index or 0, kmers.data_ptr(), B, k, keep, J,
             q.data_ptr(), canon.data_ptr(), is_rc.data_ptr(), stream(kmers))
         raise_on(err, "bucket_queries")
-        LAUNCHES["bucket_queries"] += 1
+        count_launch("bucket_queries")
     return q, canon, is_rc
 
 
@@ -92,5 +92,5 @@ def fold_table(kmers: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tenso
             kmers.device.index or 0, kmers.data_ptr(), counts.data_ptr(), B, k,
             out.data_ptr(), stream(kmers))
         raise_on(err, "fold_table")
-        LAUNCHES["fold_table"] += 1
+        count_launch("fold_table")
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from bronko_tpu_torch.ops.cuda_lib import LAUNCHES, check_cuda, library, raise_on, stream
+from bronko_tpu_torch.ops.cuda_lib import check_cuda, count_launch, library, raise_on, stream
 
 __all__ = ["gather", "gather_plain"]
 
@@ -47,5 +47,5 @@ def gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             idx.device.index or 0, tbl.data_ptr(), tbl.shape[0], idx.data_ptr(),
             idx.numel(), out.data_ptr(), stream(idx))
         raise_on(err, "gather")
-        LAUNCHES["gather"] += 1
+        count_launch("gather")
     return out

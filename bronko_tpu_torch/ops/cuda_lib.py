@@ -11,7 +11,10 @@ output.
 The wrappers live beside their plain PyTorch versions
 (`ops/cuda_buckets.py`, `ops/count.py`, `ops/cuda_gather.py`). Each adds
 one to `LAUNCHES[name]` where it launches its kernel, and nowhere else, so
-a run can show that its path went through the kernels.
+a run can show that its path went through the kernels. Kernels launch from
+the engine's count workers as well as its main thread, so the count goes
+through `count_launch`, under a lock: `LAUNCHES[name] += 1` is a read,
+an add and a write, and two threads can interleave them and lose one.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import threading
 import torch
 
 __all__ = ["LAUNCHES", "LIB_PATH", "build", "library", "check_cuda", "check_k",
-           "stream", "raise_on"]
+           "count_launch", "stream", "raise_on"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
@@ -38,7 +41,14 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 LAUNCHES = {"bucket_queries": 0, "fold_table": 0, "pack_windows": 0, "gather": 0}
 
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
 _lib = None
+
+
+def count_launch(name: str) -> None:
+    """Add one to LAUNCHES[name]; safe from any thread."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -4,6 +4,7 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: a CUDA card must be present; prints its name and power limit;
+     a child process starts drawing the bench fixture (phase 5) meanwhile;
   2. build: compiles the port's kernels (bronko_tpu_torch/csrc) with nvcc;
   3. kernels: each kernel on the card against its plain PyTorch version on
      the same inputs (exact: torch.equal), with times from CUDA events
@@ -18,10 +19,12 @@ Phases, one line each; any failure exits non-zero:
      indices into 2^20 entries, and against torch's own gathers, the
      faster of which is its library_ms), its launches read around the
      probe;
-  5. main: the bench fixture (4 synthetic 29,900 bp genomes, 300,000 x
-     150 bp reads, ~1,500x, seed 2024; cached in .smoke_cache/) through the
-     port's CLI entry: `build`, then `call -d -r --pileup` on the card with
-     the host counter, every kernel's launch count read around that run;
+  5. main: the bench fixture (4 synthetic 29,900 bp genomes and bench.py's
+     three samples s0, s1, s2 of 300,000 x 150 bp reads, ~1,500x, seed
+     2024, drawn in bench.py's order; cached in .smoke_cache/) through the
+     port's CLI entry: `build`, then `call -d -r --pileup` of s0 on the card
+     with the host counter (the index built on the card: --device-build
+     auto), every kernel's launch count read around that run;
   6. check: every planted major variant is a PASS row of the VCF, and the
      card's tallies, selected genome and int32 pileup equal the same
      pipeline run on the CPU (the plain versions);
@@ -36,9 +39,27 @@ Phases, one line each; any failure exits non-zero:
      same sample's device batches, the flat tally and the sub-index
      pass 2 for strain 17 equal the words path, K1 and K2 launched there
      too; stage seconds, device peaks and index bytes;
-  9. warm: N (default 1) more samples with each counter, in turns, with
+  9. cohort: s0, s1 and s2, each under three names (9 samples), through
+     `call` with the host counter on 2 count workers: each sample's VCF
+     data lines, pileup TSV and overview row equal its own single-sample
+     card run; again with a missing, a truncated, a malformed and an empty
+     file among them (exit 2, the good samples' files unchanged, the
+     overview theirs in input order); s0-s2 with `--counter device` (K3 on
+     the count workers) equal the host counter's files; cohort wall
+     seconds and samples per hour with 1 and 2 count workers in turns,
+     beside the single-sample totals and the host's core count;
+ 10. profile: one sample with `--profile-dir`: the trace names K1's and
+     K2's kernels, and the outputs equal the run without it;
+ 11. device build: the index built on the card (`--device-build on`) against the
+     host build + layout (`off`) for the fixture's 4 genomes and the
+     32-strain panel: every DeviceIndex tensor equal, medians of 5 of each
+     route in turns, K1 and K3 launches and the device peak of the card's
+     build; then `call -g strain*.fasta --device-build on` equals phase
+     8's files;
+ 12. warm: N (default 1) more samples with each counter, in turns, with
      their stage seconds;
- 10. the last stdout line: {"ok": true, "device": {...}}.
+ 13. the script's own wall time, the kernels line, the card's name and
+     power limit, and the last stdout line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,6 +72,7 @@ sys.modules["jax"] = None
 sys.modules["bronko_tpu"] = None
 
 import argparse  # noqa: E402
+import gzip  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -58,12 +80,15 @@ import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from contextlib import contextmanager  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bronko_tpu_torch import cli  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
+from bronko_tpu_torch.index.build import build_index  # noqa: E402
+from bronko_tpu_torch.index.device_build import build_device_index_on_device  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.index.store import load_index  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
@@ -78,6 +103,10 @@ N_GENOMES = 4
 GENOME_LEN = 29_900
 N_READS = 300_000
 READ_LEN = 150
+N_SAMPLES = 3  # bench.py's cohort: s0, s1, s2
+COHORT_COPIES = "abc"  # each sample under three names: a cohort of 9
+COHORT_REPS = 3  # cohort timings per worker count, in turns
+BUILD_REPS = 5
 KERNEL_B = 1_000_003  # a multiple of no block size
 KERNEL_KS = (15, 21, 31)
 PACK_R, PACK_L = 262_144, 160  # a default chunk of 150 bp reads, trimmed
@@ -97,6 +126,7 @@ PANEL_STRAINS = 32  # README's SARS-scale panel: 4 histogram words of 8 genomes
 PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
 PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
 PANEL_REPS = 5
+CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
                        "bronko_tpu_torch/csrc/bucket_kernels.cu"),
@@ -332,10 +362,11 @@ def _synthetic():
     return synth
 
 
-def make_fixture() -> tuple[list[str], str, list[int]]:
-    """The bench fixture (bench.py's synthetic branch, first sample):
-    returns genome paths, the FASTQ path and the planted major positions
-    (0-based). Draws from the seed in bench.py's order even when cached."""
+def make_fixture() -> tuple[list[str], list[str], list[int]]:
+    """The bench fixture (bench.py's synthetic branch): returns the genome
+    paths, the FASTQ paths of samples s0, s1 and s2 and s0's planted major
+    positions (0-based). Draws from the seed in bench.py's order; a cached
+    sample is drawn again only when a later one is missing."""
     synth = _synthetic()
     os.makedirs(CACHE, exist_ok=True)
     rng = np.random.default_rng(SEED)
@@ -348,27 +379,38 @@ def make_fixture() -> tuple[list[str], str, list[int]]:
         genome_paths.append(path)
         genomes.append(seq)
     depth = N_READS * READ_LEN // GENOME_LEN
-    majors = {int(p): 0.9 for p in rng.integers(1000, GENOME_LEN - 1000, 8)}
-    minors = {int(p): float(f) for p, f in zip(
-        rng.integers(1000, GENOME_LEN - 1000, 12), 0.05 + 0.2 * rng.random(12))}
-    fastq = os.path.join(CACHE, f"deep_{N_READS}_s0.fastq.gz")
-    if not os.path.exists(fastq):
+    fastqs = [os.path.join(CACHE, f"deep_{N_READS}_s{s}.fastq.gz") for s in range(N_SAMPLES)]
+    planted = []
+    for s, fastq in enumerate(fastqs):
+        majors = {int(p): 0.9 for p in rng.integers(1000, GENOME_LEN - 1000, 8)}
+        minors = {int(p): float(f) for p, f in zip(
+            rng.integers(1000, GENOME_LEN - 1000, 12), 0.05 + 0.2 * rng.random(12))}
+        if s == 0:  # a minor drawn on a major's position overrides its fraction
+            planted = sorted(p for p in majors if p not in minors)
+        if all(os.path.exists(f) for f in fastqs[s:]):
+            break
         reads, _ = synth.make_sample(
             genomes[0], rng, read_len=READ_LEN, depth=depth, major_positions=majors,
             minor_positions=minors, error_rate=0.003)
-        synth.write_fastq(fastq + ".tmp.gz", reads[:N_READS])
-        os.replace(fastq + ".tmp.gz", fastq)
-    # a minor drawn on a major's position overrides its fraction
-    return genome_paths, fastq, sorted(p for p in majors if p not in minors)
+        if not os.path.exists(fastq):
+            synth.write_fastq(fastq + ".tmp.gz", reads[:N_READS])
+            os.replace(fastq + ".tmp.gz", fastq)
+    return genome_paths, fastqs, planted
 
 
-def call_args(db: str, fastq: str, out: str, counter: str):
+def call_args(ref: str | list[str], fastqs: str | list[str], out: str, counter: str,
+              *extra: str):
+    """The config of `call -d ref` (or `-g ref...` for a list) on the
+    given samples, `--pileup --counter counter`, plus `extra`."""
+    refs = ["-g", *ref] if isinstance(ref, list) else ["-d", ref]
+    fastqs = [fastqs] if isinstance(fastqs, str) else fastqs
     return cli.call_config(cli.build_parser().parse_args(
-        ["call", "-d", db, "-r", fastq, "-o", out, "--pileup", "--counter", counter]))
+        ["call", *refs, "-r", *fastqs, "-o", out, "--pileup", "--counter", counter, *extra]))
 
 
-def run_call(db: str, fastq: str, out: str, device: torch.device | None, counter: str):
-    results = cli.run_call_cmd(call_args(db, fastq, out, counter), device=device)
+def run_call(db, fastq: str, out: str, device: torch.device | None, counter: str,
+             *extra: str):
+    results = cli.run_call_cmd(call_args(db, fastq, out, counter, *extra), device=device)
     if len(results) != 1:
         fail("main", f"expected one sample result, got {len(results)}")
     return results[0]
@@ -413,7 +455,8 @@ def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
     counted = {}
     for counter in ("host", "device"):
         cfg = call_args(db, fastq, out, counter)
-        counted[counter] = engine.count_job([fastq], cfg, cfg.kmer, gpu)
+        c = engine._count_job([fastq], cfg, cfg.kmer, gpu)
+        counted[counter] = (c.kmers, c.counts, c.cstats)
     (hk, hc, hs), (dk, dc, ds) = counted["host"], counted["device"]
     if not (np.array_equal(hk, dk) and np.array_equal(hc, dc)):
         fail("count", "the device counter's k-mers or counts differ from the host counter's")
@@ -520,8 +563,9 @@ def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str
                       f"{dev.hist is not None}, W = {W}, grouped {dev.fid_grouped}")
     index_bytes = dev.device_bytes()
     cfg = call_args(db + ".bkdb", fastq, work, "host")
-    kmers, counts, _ = engine.count_job([fastq], cfg, cfg.kmer, gpu)
-    batches = engine.to_batches(kmers, counts, cfg.batch_size, gpu)
+    counted = engine._count_job([fastq], cfg, cfg.kmer, gpu)
+    kmers = counted.kmers
+    batches = engine.to_batches(kmers, counted.counts, cfg.batch_size, gpu)
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
 
     def words():
@@ -569,6 +613,258 @@ def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str
           f"the genome ids and the sub-index), host layout {layout_s:.2f}s ({smi})", flush=True)
 
 
+@contextmanager
+def count_workers(n: int):
+    """BRONKO_COUNT_WORKERS=n for the duration."""
+    old = os.environ.get("BRONKO_COUNT_WORKERS")
+    os.environ["BRONKO_COUNT_WORKERS"] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("BRONKO_COUNT_WORKERS")
+        else:
+            os.environ["BRONKO_COUNT_WORKERS"] = old
+
+
+def run_cohort(db: str, fastqs: list[str], out: str, counter: str = "host"):
+    """`call` on a cohort through the CLI entry on the card. Returns (its
+    results or the SystemExit code, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = cli.run_call_cmd(call_args(db, fastqs, out, counter))
+    except SystemExit as e:
+        res = e.code
+    return res, time.perf_counter() - t0
+
+
+def data_lines(vcf: bytes) -> bytes:
+    return b"".join(ln for ln in vcf.splitlines(keepends=True) if not ln.startswith(b"#"))
+
+
+def overview_rows(outputs: dict[str, bytes]) -> dict[str, list[str]]:
+    """The overview's rows by sample path: [path, the other columns]."""
+    lines = outputs["bronko_overview.tsv"].decode().splitlines()[1:]
+    return {ln.split("\t", 1)[0]: ln.split("\t", 1)[1] for ln in lines}
+
+
+def stem(path: str) -> str:
+    return os.path.basename(path).split(".")[0]
+
+
+def phase_cohort(db: str, fastqs: list[str], work: str, smi: str) -> dict:
+    """bench.py's three samples, each under three names, through `call`:
+    held against their single-sample card runs, with failures among them,
+    with the device counter, and timed with 1 and 2 count workers."""
+    singles = {}
+    for fq in fastqs:
+        out = os.path.join(work, f"single_{stem(fq)}")
+        res = run_call(db, fq, out, None, "host")
+        singles[fq] = (read_outputs(out), sum(res.seconds.values()))
+    cohort_in = os.path.join(work, "cohort_in")
+    os.makedirs(cohort_in)
+    jobs, source = [], {}
+    for c in COHORT_COPIES:
+        for s, fq in enumerate(fastqs):
+            jobs.append(os.path.join(cohort_in, f"s{s}{c}.fastq.gz"))
+            shutil.copyfile(fq, jobs[-1])
+            source[jobs[-1]] = fq
+
+    def check(outputs: dict[str, bytes], good: list[str], what: str) -> None:
+        rows = overview_rows(outputs)
+        if list(rows) != good:
+            fail("cohort", f"{what}: the overview lists {list(rows)}, not {good}")
+        for job in good:
+            want, _ = singles[source[job]]
+            (want_row,) = overview_rows(want).values()
+            name = stem(source[job])
+            if (data_lines(outputs[stem(job) + ".vcf"]) != data_lines(want[name + ".vcf"])
+                    or outputs[stem(job) + ".tsv"] != want[name + ".tsv"]
+                    or rows[job] != want_row):
+                fail("cohort", f"{what}: {job} differs from its single-sample run")
+
+    out = os.path.join(work, "cohort")
+    with count_workers(2):
+        (res, wall), launches = drive(lambda: run_cohort(db, jobs, out))
+    if isinstance(res, int) or [r.summary.filename for r in res] != jobs:
+        fail("cohort", f"the 9-sample cohort returned {res}")
+    cohort = read_outputs(out)
+    check(cohort, jobs, "9 samples, 2 count workers")
+    print(f"[cohort] {len(jobs)} samples ({len(fastqs)} x {len(COHORT_COPIES)} names), host "
+          f"counter, 2 count workers: {wall:.4f}s; each sample's VCF data lines, pileup and "
+          f"overview row equal its single-sample card run; launches {launches}", flush=True)
+
+    bad = {"missing": os.path.join(cohort_in, "missing.fastq.gz"),
+           "truncated": os.path.join(cohort_in, "trunc.fastq.gz"),
+           "malformed": os.path.join(cohort_in, "bad.fastq.gz"),
+           "empty": os.path.join(cohort_in, "empty.fastq.gz")}
+    with open(fastqs[0], "rb") as src, open(bad["truncated"], "wb") as dst:
+        dst.write(src.read()[:200])  # a gzip stream cut mid-way
+    with gzip.open(bad["malformed"], "wt") as fh:
+        fh.write("this is not\na fastq at all\n")
+    with gzip.open(bad["empty"], "wt") as fh:
+        fh.write("")
+    good = jobs[:5]
+    mixed = [good[0], bad["missing"], good[1], bad["truncated"], good[2], bad["malformed"],
+             good[3], bad["empty"], good[4]]
+    out = os.path.join(work, "cohort_failures")
+    with count_workers(2):
+        code, _ = run_cohort(db, mixed, out)
+    if code != 2:
+        fail("cohort", f"a cohort with failing samples exited {code}, not 2")
+    got = read_outputs(out)
+    check(got, good, "with failures")
+    if any(got[f] != cohort[f] for f in got if f != "bronko_overview.tsv"):
+        fail("cohort", "the good samples' files differ from the cohort without failures")
+    print(f"[cohort] with a missing, a truncated, a malformed and an empty file among "
+          f"{len(good)} good samples: exit 2, the good samples' files unchanged, the overview "
+          f"lists them in input order", flush=True)
+
+    out = os.path.join(work, "cohort_device")
+    torch.cuda.reset_peak_memory_stats()
+    with count_workers(2):
+        (res, wall_dev), dev_launches = drive(lambda: run_cohort(db, jobs[:3], out, "device"))
+    peak = torch.cuda.max_memory_allocated()
+    if isinstance(res, int) or len(res) != 3:
+        fail("cohort", f"the device-counter cohort returned {res}")
+    missing = [n for n in ("pack_windows", "bucket_queries", "fold_table")
+               if dev_launches[n] == 0]
+    if missing:
+        fail("cohort", f"kernels never launched on the device-counter cohort: {missing}")
+    got = read_outputs(out)
+    rows = overview_rows(cohort)
+    if (overview_rows(got) != {j: rows[j] for j in jobs[:3]}
+            or any(got[f] != cohort[f] for f in got if f != "bronko_overview.tsv")):
+        fail("cohort", "the device-counter cohort's files differ from the host counter's")
+    print(f"[cohort] {jobs[:3]} with --counter device on 2 count workers: {wall_dev:.4f}s, "
+          f"files equal the host counter's; launches {dev_launches}; peak device memory "
+          f"{peak} bytes ({smi})", flush=True)
+
+    times = {1: [], 2: []}
+    for i in range(COHORT_REPS):
+        for n in (1, 2) if i % 2 == 0 else (2, 1):
+            with count_workers(n):
+                res, wall = run_cohort(db, jobs, os.path.join(work, f"cohort_w{n}_{i}"))
+            if isinstance(res, int) or len(res) != len(jobs):
+                fail("cohort", f"the timed cohort with {n} count workers returned {res}")
+            times[n].append(wall)
+    single_sum = sum(singles[source[j]][1] for j in jobs)
+    per_hour = {n: len(jobs) / statistics.median(t) * 3600 for n, t in times.items()}
+    print(f"[cohort] {len(jobs)} samples, wall seconds with 1 count worker "
+          f"{', '.join(f'{t:.4f}' for t in times[1])} -> {per_hour[1]:.0f} samples/h, with 2 "
+          f"{', '.join(f'{t:.4f}' for t in times[2])} -> {per_hour[2]:.0f} samples/h (medians; "
+          f"in turns); the same samples' single-sample totals sum to {single_sum:.4f}s -> "
+          f"{len(jobs) / single_sum * 3600:.0f} samples/h; os.cpu_count() {os.cpu_count()}; "
+          f"{smi}", flush=True)
+    return dev_launches
+
+
+def phase_profile(db: str, fastq: str, work: str, smi: str) -> None:
+    """One sample with --profile-dir: a Chrome trace that names K1's and
+    K2's kernels, and the outputs of the run without the profiler."""
+    prof = os.path.join(work, "profile")
+    out = os.path.join(work, "profiled")
+    t0 = time.perf_counter()
+    run_call(db, fastq, out, None, "host", "--profile-dir", prof)
+    took = time.perf_counter() - t0
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        fail("profile", f"expected one trace in {prof}, found {traces}")
+    with open(os.path.join(prof, traces[0])) as fh:
+        trace = json.load(fh)
+    kernels = {e.get("name", "") for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"}
+    for name in ("bucket_queries_kernel", "fold_table_kernel"):
+        if not any(name in k for k in kernels):
+            fail("profile", f"the trace names no {name} among {len(kernels)} kernels")
+    if read_outputs(out) != read_outputs(os.path.join(work, f"single_{stem(fastq)}")):
+        fail("profile", "the profiled run's files differ from the run without the profiler")
+    print(f"[profile] {traces[0]}: {len(trace['traceEvents'])} events, {len(kernels)} kernel "
+          f"names, K1 and K2 among them; files equal the run without the profiler; the "
+          f"profiled call took {took:.4f}s ({smi})", flush=True)
+
+
+def same_index(got, want) -> list[str]:
+    """The DeviceIndex tensors and fields that differ (none: equal); the
+    genome ids of the postings and genomes 0 and G-1's sub-indexes too."""
+    bad = []
+    for name in ("keys", "keys_ordered", "offsets", "hist", "hist_words",
+                 "postings_local32", "postings"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (a is not None and (
+                a.dtype != b.dtype or not torch.equal(a, b))):
+            bad.append(name)
+    for name in ("k", "num_genomes", "total_len", "max_bucket", "g_total_len",
+                 "fid_grouped", "seq_slices"):
+        if getattr(got, name) != getattr(want, name):
+            bad.append(name)
+    for name in ("genome_lens", "file_bases"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            bad.append(name)
+    if not torch.equal(got.posting_fids(), want.posting_fids()):
+        bad.append("posting_fids")
+    for g in sorted({0, want.num_genomes - 1}):
+        a, b = got.subindex(g), want.subindex(g)
+        for name in ("keys_ordered", "offsets", "postings"):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                bad.append(f"subindex({g}).{name}")
+    return bad
+
+
+def phase_device_build(genome_paths: list[str], panel: list[str], fastq: str, work: str,
+                       smi: str) -> dict:
+    """The index built on the card against the host build + layout, for
+    the fixture's genomes and the 32-strain panel; then a `call -g` of the
+    panel with the card's build."""
+    gpu = CARD
+    k = 21
+
+    def host():
+        return build_device_index(build_index(k, paths), gpu)
+
+    def card():
+        return build_device_index_on_device(k, paths, gpu)[1]
+
+    launches = {}
+    for label, paths in (("fixture", genome_paths), ("panel32", panel)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(gpu)
+        torch.cuda.reset_peak_memory_stats(gpu)
+        dev, launches[label] = drive(card)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(gpu) - base
+        missing = [n for n in ("pack_windows", "bucket_queries") if launches[label][n] == 0]
+        if missing:
+            fail("device build", f"kernels never launched on the card's build of {label}: {missing}")
+        bad = same_index(dev, host())
+        if bad:
+            fail("device build", f"{label}: the card's build differs from the host's in {bad}")
+        held = dev.device_bytes()
+        del dev
+        times = {"host": [], "card": []}
+        for i in range(BUILD_REPS):
+            for route in ("host", "card") if i % 2 == 0 else ("card", "host"):
+                _, sec = _timed(host if route == "host" else card)
+                times[route].append(sec)
+        med = {r: statistics.median(t) for r, t in times.items()}
+        print(f"[device build] {label}: {len(paths)} genomes; every DeviceIndex tensor and field "
+              f"equal; seconds (medians of {BUILD_REPS}, in turns) host build + layout "
+              f"{med['host']:.4f} ({', '.join(f'{t:.4f}' for t in times['host'])}), card "
+              f"{med['card']:.4f} ({', '.join(f'{t:.4f}' for t in times['card'])}); the card's "
+              f"build: launches {launches[label]}, peak device memory above what was held "
+              f"before {peak} bytes, index {held} bytes ({smi})", flush=True)
+
+    out = os.path.join(work, "panel_device_build")
+    res = run_call(panel, fastq, out, None, "host", "--device-build", "on")
+    if read_outputs(out) != read_outputs(os.path.join(work, "panel_gpu")):
+        fail("device build", "`call -g` with the card's build differs from the panel phase's files")
+    print(f"[device build] `call -g` of the 32 strains with --device-build on: strain {res.best}, "
+          f"files equal the panel phase's; {stage_line('device build', res, smi)}", flush=True)
+    return launches
+
+
 def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
     """n more samples with each counter, in turns (host, device, device,
     host, ...); with n > 1 also each stage's median (q1, q3)."""
@@ -595,16 +891,37 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--warm", type=int, default=1,
                         help="warm samples per counter after the checks")
+    parser.add_argument("--fixture-only", action="store_true",
+                        help="draw the bench fixture into .smoke_cache/ and exit")
     args = parser.parse_args()
+    if args.fixture_only:
+        make_fixture()
+        return 0
+    t_start = time.perf_counter()
     kind, smi = phase_device()
+    # the fixture's reads are drawn by a child process while the kernels
+    # build and run on the card
+    drawing = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fixture-only"])
+    try:
+        return run_phases(args, kind, smi, drawing, t_start)
+    finally:
+        if drawing.poll() is None:
+            drawing.kill()
+            drawing.wait()
+
+
+def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: float) -> int:
     phase_build()
     rows = phase_kernels(smi)
     rows["gather"] = phase_gather(smi)
 
     t0 = time.perf_counter()
-    genome_paths, fastq, planted = make_fixture()
-    print(f"[main] fixture ready in {time.perf_counter() - t0:.1f}s: "
-          f"{N_GENOMES} x {GENOME_LEN} bp genomes, {fastq}", flush=True)
+    if drawing.wait() != 0:
+        fail("main", f"drawing the fixture exited {drawing.returncode}")
+    genome_paths, fastqs, planted = make_fixture()
+    fastq = fastqs[0]
+    print(f"[main] fixture ready {time.perf_counter() - t0:.1f}s after the kernel phases: "
+          f"{N_GENOMES} x {GENOME_LEN} bp genomes, {', '.join(fastqs)}", flush=True)
     work = os.path.join(CACHE, "run")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -644,12 +961,18 @@ def main() -> int:
           f"CPU {stage_line('cpu', ref, 'host CPU')}", flush=True)
     count_launches = phase_count(db + ".bkdb", fastq, work, res, smi)
     phase_panel(genome_paths[0], fastq, planted, work, smi)
+    cohort_launches = phase_cohort(db + ".bkdb", fastqs, work, smi)
+    phase_profile(db + ".bkdb", fastq, work, smi)
+    build_launches = phase_device_build(genome_paths, make_panel(genome_paths[0]), fastq, work,
+                                        smi)
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
 
     # each kernel's launches on its own path: K1 and K2 on the main path,
     # K3 on the device counter's, K4 on the gather probe's
     launches["pack_windows"] = count_launches["pack_windows"]
     launches["gather"] = rows["gather"]["launches"]
+    print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
+          f"cohort {cohort_launches}; the card's index builds {build_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -657,6 +980,7 @@ def main() -> int:
         "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
         "library_ms": rows[name]["library_ms"],
     } for name, (replaces, source) in KERNELS.items()]
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Kernels K1-K4 and the port's main path (with the host and the device
-counter) on a CUDA card, against the plain PyTorch versions on the same
-card and the CPU run. Skipped without a card; on one:
-python -m pytest tests/test_torch_cuda.py -m cuda"""
+"""Kernels K1-K4, the port's main path (with the host and the device
+counter), the index built on the card and a device-counter cohort on two
+count workers, on a CUDA card, against the plain PyTorch versions on the
+same card, the host layout and the CPU run. Skipped without a card; on
+one: python -m pytest tests/test_torch_cuda.py -m cuda"""
 
 import os
 import re
@@ -327,3 +328,48 @@ def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, case, path):
     np.testing.assert_array_equal(results["gpu"].pileup, results["cpu"].pileup)
     for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
         assert open(tmp_path / "gpu" / f).read() == open(tmp_path / "cpu" / f).read()
+
+
+@pytest.mark.parametrize("case", ["1x1", "4x1", "4x3", "13x2"])
+def test_device_build_on_the_card_equals_the_host_layout(gpu, tmp_path, case):
+    """The index built on the card (K3 packs the windows, K1 hashes them
+    at every position) equals the host layout, every tensor and field."""
+    from test_torch_device_build import assert_same_index, panel_paths
+
+    from bronko_tpu_torch.index.device_build import build_device_index_on_device
+
+    paths = panel_paths(tmp_path, case)
+    before = dict(cuda_lib.LAUNCHES)
+    _, dev = build_device_index_on_device(21, paths, gpu)
+    torch.cuda.synchronize()
+    assert all(cuda_lib.LAUNCHES[k] > before[k] for k in ("pack_windows", "bucket_queries"))
+    assert dev.keys.device.type == "cuda"
+    assert_same_index(dev, build_device_index(build_index(21, paths), gpu))
+
+
+def test_device_counter_cohort_on_two_workers_equals_the_cpu(gpu, tmp_path, monkeypatch):
+    """A 3-sample cohort counted on the card by 2 count workers (K3 from
+    worker threads, batches uploaded there) writes the CPU run's files."""
+    rng = np.random.default_rng(43)
+    base = make_genome(rng, 1500)
+    ref = str(tmp_path / "ref.fasta")
+    write_fasta(ref, "ref", base)
+    fqs = []
+    for i in range(3):
+        reads, _ = make_sample(base, rng, read_len=90, depth=300,
+                               major_positions={400 + 300 * i: 0.9}, error_rate=0.004)
+        fqs.append(str(tmp_path / f"s{i}.fastq.gz"))
+        write_fastq(fqs[-1], reads)
+    monkeypatch.setenv("BRONKO_COUNT_WORKERS", "2")
+    index = build_index(21, [ref])
+    outs = {}
+    for name, device in (("cpu", torch.device("cpu")), ("gpu", gpu)):
+        cfg = CallConfig(genomes=[ref], reads=fqs, output=str(tmp_path / name),
+                         output_pileup=True, batch_size=4096, counter="device")
+        before = cuda_lib.LAUNCHES["pack_windows"]
+        results = run_call(cfg, index, build_device_index(index, device))
+        assert [r.summary.filename for r in results] == fqs
+        assert (cuda_lib.LAUNCHES["pack_windows"] > before) == (name == "gpu")
+        outs[name] = {f: open(tmp_path / name / f, "rb").read()
+                      for f in sorted(os.listdir(tmp_path / name))}
+    assert len(outs["gpu"]) == 7 and outs["gpu"] == outs["cpu"]

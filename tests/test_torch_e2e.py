@@ -206,8 +206,8 @@ def test_cli_device_counter_matches_jax(synth, monkeypatch):
     ["-k", "20"],                               # validation: even k
     ["--mesh", "2x1"],
     ["--shard-samples"],
-    ["--device-build", "on"],
-    ["--profile-dir", "prof"],
+    ["--num-processes", "2"],
+    ["--mesh", "1x1", "--device-build", "on"],  # validation: the mesh needs the host build
     ["--coordinator", "localhost:1234", "--num-processes", "1", "--process-id", "0"],
 ])
 def test_cli_refuses_with_exit_1(synth, monkeypatch, extra):
@@ -215,6 +215,25 @@ def test_cli_refuses_with_exit_1(synth, monkeypatch, extra):
     monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
     assert _exit_code(["call", "-g", genomes[0], "-r", fq0,
                        "-o", str(tmp / "refused"), *extra]) == 1
+
+
+@pytest.mark.parametrize("extra", [["--device-build", "on"], ["--device-build", "off"],
+                                   ["--profile-dir", "prof"]])
+def test_cli_device_build_and_profile_dir(synth, monkeypatch, extra):
+    """Once refused: the device build and the profiler exit 0 and write the
+    files of a plain call; the profiler writes its trace."""
+    tmp, genomes, (fq0, _) = synth
+    monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    want = tmp / "cli_plain"
+    if not want.exists():
+        assert cli.main(["call", "-g", *genomes, "-r", fq0, "-o", str(want)]) == 0
+    out = tmp / f"cli_{extra[0][2:]}_{extra[1]}"
+    if extra[0] == "--profile-dir":
+        extra = [extra[0], str(tmp / "prof")]
+    assert cli.main(["call", "-g", *genomes, "-r", fq0, "-o", str(out), *extra]) == 0
+    assert _outputs(out) == _outputs(want)
+    if extra[0] == "--profile-dir":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(extra[1]))
 
 
 @pytest.mark.parametrize("platform", ["gpu", "tpu"])

@@ -315,6 +315,76 @@ def test_native_library_equals_jax(panel):
         np.testing.assert_array_equal(g[1], w[1])
 
 
+@pytest.mark.parametrize("source", ["gzip", "plain", "missing"])
+def test_inflated_text_counts_equal_the_path(panel, tmp_path, source):
+    """native_read_inflate + native_count_fastq(text=) give the k-mers,
+    counts and stats of counting the path, in both packages alike; the
+    buffer is closed by the count, on_close fires once however often
+    close() is called. A missing file gives no buffer, and the count of
+    its path raises OSError in both."""
+    _, _, fq = panel
+    path = {"gzip": fq, "plain": str(tmp_path / "s.fastq"),
+            "missing": str(tmp_path / "none.fastq.gz")}[source]
+    if source == "plain":
+        with gzip.open(fq, "rb") as src, open(path, "wb") as dst:
+            dst.write(src.read())
+    got = {}
+    for name, mod in (("torch", native), ("jax", jax_native)):
+        fired = []
+        text = mod.native_read_inflate(path, on_close=lambda: fired.append(1))
+        assert (text.handle is None) == (source == "missing")
+        if source == "missing":
+            with pytest.raises(OSError):
+                mod.native_count_fastq(path, 21, 3, 1_000_000, threads=2, text=text)
+            text.close()
+            got[name] = text.size
+            continue
+        from_text = mod.native_count_fastq(path, 21, 3, 1_000_000, threads=2, text=text)
+        assert text.handle is None and fired == [1]
+        text.close()
+        assert fired == [1]
+        from_path = mod.native_count_fastq(path, 21, 3, 1_000_000, threads=2)
+        for a, b in zip(from_text[:2], from_path[:2]):
+            np.testing.assert_array_equal(a, b)
+        assert from_text[2] == from_path[2]
+        got[name] = (text.size, from_text)
+    if source == "missing":
+        assert got["torch"] == got["jax"]
+        return
+    assert got["torch"][0] == got["jax"][0] > 0
+    for a, b in zip(got["torch"][1][:2], got["jax"][1][:2]):
+        np.testing.assert_array_equal(a, b)
+    assert got["torch"][1][2] == got["jax"][1][2]
+
+
+def test_a_failed_mate_releases_its_sibling(panel, tmp_path):
+    """A paired sample whose first mate cannot be read: the count raises,
+    and the second mate's inflated buffer is closed all the same (its
+    on_close fires once), in both packages' _count_job."""
+    from concurrent.futures import Future
+
+    import bronko_tpu.call.engine as jax_engine
+
+    _, _, fq = panel
+    missing = str(tmp_path / "none.fastq.gz")
+    for name, mod in (("torch", native), ("jax", jax_native)):
+        fired = []
+        texts = []
+        for p in (missing, fq):
+            f = Future()
+            f.set_result(mod.native_read_inflate(p, on_close=lambda p=p: fired.append(p)))
+            texts.append(f)
+        cfg = (config.CallConfig if name == "torch" else jax_config.CallConfig)(
+            genomes=["x.fasta"], counter="host")
+        with pytest.raises(OSError):
+            if name == "torch":
+                engine._count_job([missing, fq], cfg, 21, CPU, threads=2, texts=texts)
+            else:
+                jax_engine._count_job([missing, fq], cfg, 21, threads=2, texts=texts)
+        assert all(f.result().handle is None for f in texts), name
+        assert sorted(fired) == sorted([missing, fq]), name
+
+
 def _pileups(rng, L):
     fwd = rng.integers(0, 400, size=(L, 4)).astype(np.int32)
     rev = rng.integers(0, 400, size=(L, 4)).astype(np.int32)

@@ -101,3 +101,31 @@ def test_other_devices_raise_instead_of_falling_back():
         cb.bucket_queries(kmers, 21, (2, 3))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cb.fold_table(kmers, counts, 21)
+
+
+def test_launch_counts_are_exact_across_threads(monkeypatch):
+    """Kernels launch from the count workers and the main thread at once:
+    8 threads adding through count_launch lose no count."""
+    import sys
+    import threading
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the GIL allows
+    try:
+        monkeypatch.setitem(cuda_lib.LAUNCHES, "pack_windows", 0)
+        start = threading.Barrier(8)
+
+        def launch():
+            start.wait()
+            for _ in range(20_000):
+                cuda_lib.count_launch("pack_windows")
+
+        threads = [threading.Thread(target=launch) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert cuda_lib.LAUNCHES["pack_windows"] == 8 * 20_000
+    finally:
+        sys.setswitchinterval(interval)
