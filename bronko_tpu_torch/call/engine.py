@@ -34,16 +34,24 @@ the same pieces for one sample, in series.
 Batching cannot change a result: tallies are sums, the pileup sums and
 maxima. Neither can the pipeline: each sample's device part runs on the
 main thread in input order, and its writers on one thread in that order.
+
+Across torch.distributed ranks (parallel/), one a device: under --mesh
+DxG a ShardedMapper runs steps 2-5 of every sample over the ranks (the
+collectives on the main thread, in input order), every rank holds the
+merged result and rank 0 writes; under --shard-samples each rank runs
+whole samples (jobs[rank::world]), writes their files, and the results
+gather to every rank in input order for rank 0's overview.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import pickle
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -55,7 +63,7 @@ from bronko_tpu_torch.call.outputs import (
 from bronko_tpu_torch.call.variants import CallStats, VCFRecord, call_variants_for_seq
 from bronko_tpu_torch.config import CallConfig
 from bronko_tpu_torch.consts import KMER_COUNT_CAP
-from bronko_tpu_torch.index.layout import DeviceIndex
+from bronko_tpu_torch.index.layout import DeviceIndex, load_subindex
 from bronko_tpu_torch.index.model import BronkoIndex
 from bronko_tpu_torch.io import native
 from bronko_tpu_torch.io.fastq import read_fastq_chunks
@@ -65,6 +73,12 @@ from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
     PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
     pileup_from_saved, pileup_from_subindex, tally, tally_save,
+)
+from bronko_tpu_torch.parallel import distributed
+from bronko_tpu_torch.parallel.distributed import allgather_bytes, is_primary
+from bronko_tpu_torch.parallel.mesh import make_mesh
+from bronko_tpu_torch.parallel.pipeline import (
+    sharded_pileup, sharded_tally, split_index, upload_shard,
 )
 from bronko_tpu_torch.utils.memory import log_memory_usage
 
@@ -86,7 +100,8 @@ class SampleResult:
     records: list[VCFRecord]
     tallies: np.ndarray          # (G, 3) int64 perfect / variant / unique
     best: int                    # selected genome
-    pileup: np.ndarray           # (4, Tg+1, 4) int32, genome-local
+    pileup: np.ndarray | None    # (4, Tg+1, 4) int32, genome-local; None for a
+    #                              sample another rank mapped (--shard-samples)
     reads: int                   # reads counted
     seconds: dict[str, float]    # wall seconds by STAGES
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved' or 'subindex')
@@ -298,11 +313,14 @@ def call_sample_variants(index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
 def _finish_one(display_path: str, index: BronkoIndex, dev: DeviceIndex,
                 cfg: CallConfig, best: int, pileup: np.ndarray,
                 tally_triple: tuple[int, int, int]):
-    """Host phase of one sample: call variants and write its outputs."""
+    """Host phase of one sample: call variants and write its outputs. In a
+    world of several ranks every rank calls; rank 0 alone writes, unless
+    each rank owns its samples (--shard-samples; JAX engine.py:1046-1054)."""
     records, stats, seq_pileups = call_sample_variants(index, dev, cfg, best, pileup)
-    if cfg.output_pileup:
-        write_pileup(cfg.output, display_path, index.files[best], seq_pileups)
-    write_vcf(cfg.output, display_path, records, index.files[best])
+    if is_primary() or cfg.shard_samples:
+        if cfg.output_pileup:
+            write_pileup(cfg.output, display_path, index.files[best], seq_pileups)
+        write_vcf(cfg.output, display_path, records, index.files[best])
     summary = SampleSummary(display_path, index.files[best].name, stats,
                             *tally_triple)
     return summary, records
@@ -343,30 +361,35 @@ class Mapped:
 
 
 def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
-             cfg: CallConfig) -> Mapped:
+             cfg: CallConfig, mapper: ShardedMapper | None = None) -> Mapped:
     """The device part of one sample: h2d (unless a count worker uploaded
     the batches), pass 1, selection, pass 2, d2h; the device synced at
-    every stage boundary."""
+    every stage boundary. With a mapper (--mesh) the rank uploads its own
+    batches and both passes run over the mesh (JAX engine.py:849-864)."""
     seconds = {}
+    device = dev.device if mapper is None else mapper.device
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
     t = [time.perf_counter()]
     batches = counted.batches
     if batches is None:
-        batches = to_batches(counted.kmers[:n_kmers], counted.counts[:n_kmers],
-                             cfg.batch_size, dev.device)
-        _sync(dev.device)
+        kmers, counts = counted.kmers[:n_kmers], counted.counts[:n_kmers]
+        batches = (to_batches(kmers, counts, cfg.batch_size, device) if mapper is None
+                   else mapper.place_batches(kmers, counts, cfg.batch_size))
+        _sync(device)
         seconds["h2d"] = time.perf_counter() - t[0]
         t = [time.perf_counter()]
 
-    p1 = run_pass1(batches, dev, mcfg, n_kmers)
+    p1 = (run_pass1(batches, dev, mcfg, n_kmers) if mapper is None
+          else mapper.run_tallies(batches, mcfg))
     log.info("Tallied %d kmers in %.2fs", n_kmers, time.perf_counter() - t[-1])
     best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
     t.append(time.perf_counter())
 
-    pileup_t = run_pass2(batches, dev, mcfg, p1, best)
-    _sync(dev.device)
+    pileup_t = (run_pass2(batches, dev, mcfg, p1, best) if mapper is None
+                else mapper.run_pileup(batches, mcfg, best, dev.g_total_len))
+    _sync(device)
     log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
     t.append(time.perf_counter())
     pileup = pileup_t.cpu().numpy()
@@ -419,6 +442,7 @@ def saves_probe(dev: DeviceIndex, n_kmers: int, J: int) -> bool:
 class Pass1:
     tallies: np.ndarray      # (G, 3) int64 perfect / variant / unique
     lanes: np.ndarray        # (nb, G) int64 pass-2 walk length by batch and genome
+    #                          (over a mesh (1, G): the whole sample's)
     saved: list | None       # the saved probe, or None: pass 2 probes the sub-index
     path: tuple[str, str]    # (tally mode, 'saved' or 'subindex')
 
@@ -449,23 +473,111 @@ def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Te
                              dev.g_total_len, int(dev.file_bases[best]))
 
 
-def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex) -> list[SampleResult]:
+class ShardedMapper:
+    """Both passes of a sample over a DxG mesh of ranks, one device each
+    (JAX engine.py:175-237, :300-403, :492-533):
+
+      * pass 1: the rank's batches (place_batches) probe its genome shard
+        with K1; hits sum over the genome group before classification,
+        tallies over the data group (parallel/pipeline.sharded_tally);
+      * pass 2: the selected genome's sub-index, cut from the host index
+        through dev.subindex_source, sits on every rank; each rank walks
+        its share of its own batches (K1 + K2) and the pileups merge over
+        the world (pipeline.sharded_pileup).
+
+    Sums and maxima, so both equal the single-device passes exactly. `dev`
+    is the full layout on the host: a rank uploads only its shard and the
+    sub-indexes. JAX's routed layout is not ported: a sample JAX would
+    route runs B-split here, with the same output."""
+
+    def __init__(self, index: BronkoIndex, cfg: CallConfig, dev: DeviceIndex,
+                 device: torch.device):
+        n_data, n_genome = (int(x) for x in cfg.mesh.split("x"))
+        self.mesh = make_mesh(n_data, n_genome)
+        self.device = device
+        self.dev = dev
+        sharded = split_index(index, n_genome)
+        self.mode = sharded.tally_mode()
+        self.shard = upload_shard(sharded.shards[self.mesh.g], self.mode, device)
+        self.layouts_used: set[str] = set()  # 'batchwise' / 'bsplit' of pass 1
+        self._subs: dict = {}
+
+    def close(self) -> None:
+        self.mesh.close()
+
+    def place_batches(self, kmers: np.ndarray, counts: np.ndarray, batch_size: int):
+        """This rank's pass-1 batches of the sample's host k-mers and counts,
+        on its device: whole batches of its data row when the batch count
+        divides by D (batchwise), else every batch deinterleaved, row d
+        taking [d::D] of each (B-split; JAX engine.py:310-337). JAX pads
+        the batch count to a power of two and the port pads nothing, so
+        the two may take different layouts for one sample; the tallies
+        and pileup cannot differ."""
+        D, d = self.mesh.n_data, self.mesh.d
+        nb = -(-kmers.shape[0] // batch_size)
+        batchwise = nb >= D and nb % D == 0
+        self.layouts_used.add("batchwise" if batchwise else "bsplit")
+        if batchwise:
+            lo, hi = d * (nb // D) * batch_size, (d + 1) * (nb // D) * batch_size
+            return to_batches(kmers[lo:hi], counts[lo:hi], batch_size, self.device)
+        if nb == 0:
+            return []
+        starts = range(0, kmers.shape[0], batch_size)
+        ks = [kmers[i:i + batch_size][d::D] for i in starts]
+        cs = [counts[i:i + batch_size][d::D] for i in starts]
+        sizes = [k.shape[0] for k in ks]
+        km = from_u64(np.concatenate(ks), self.device)
+        ct = torch.from_numpy(np.concatenate(cs).astype(np.int32)).to(self.device)
+        return list(zip(km.split(sizes), ct.split(sizes)))
+
+    def run_tallies(self, batches, mcfg) -> Pass1:
+        out = sharded_tally(batches, self.shard, mcfg, self.mode, self.mesh)
+        return Pass1(out[:, :3], out[None, :, 3], None, (self.mode, "subindex"))
+
+    def pass2_share(self, batches):
+        """This rank's share of its pass-1 batches for pass 2: the D*G
+        ranks cover each k-mer once. Rank (d, g) takes whole batches g::G
+        of its row's when their count divides by G, else each batch's
+        k-mers [g::G] (JAX engine.py:500-511)."""
+        G, g = self.mesh.n_genome, self.mesh.g
+        if len(batches) >= G and len(batches) % G == 0:
+            return batches[g::G]
+        return [(km[g::G].contiguous(), ct[g::G].contiguous()) for km, ct in batches]
+
+    def run_pileup(self, batches, mcfg, best: int, total_len: int) -> torch.Tensor:
+        """The merged (4, total_len+1, 4) pileup of genome `best`."""
+        if best not in self._subs:
+            self._subs[best] = load_subindex(self.dev.subindex_source(best), self.device)
+        return sharded_pileup(self.pass2_share(batches), self._subs[best], mcfg, total_len,
+                              self.mesh)
+
+
+# pass 1's layouts the most recent --mesh run_call used ('batchwise',
+# 'bsplit'); plain strings, so nothing on a device is held (JAX
+# engine.py:1420-1424)
+LAST_MESH_LAYOUTS: frozenset = frozenset()
+
+
+def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
+             device: torch.device | None = None) -> list[SampleResult]:
     """Every -r file and every -1/-2 pair through the cohort pipeline, then
     the overview and the alignment. Returns the samples that succeeded, in
-    input order; raises SystemExit(1) when every sample failed. With
-    cfg.profile_dir the run is traced by torch.profiler (the device's
-    kernels too on a CUDA device) into a Chrome trace there, written even
-    when the run fails; a profiler that fails to start or stop only warns,
-    as the JAX engine's does (engine.py:1427-1446)."""
+    input order; raises SystemExit(1) when every sample failed. `device`
+    (default dev.device) counts and maps; under --mesh `dev` may stay on
+    the host. With cfg.profile_dir the run is traced by torch.profiler
+    (the device's kernels too on a CUDA device) into a Chrome trace there,
+    written even when the run fails; a profiler that fails to start or
+    stop only warns, as the JAX engine's does (engine.py:1427-1446)."""
+    device = dev.device if device is None else device
     prof = None
     if cfg.profile_dir:
         try:
-            prof = _start_profiler(cfg.profile_dir, dev.device)
+            prof = _start_profiler(cfg.profile_dir, device)
             log.info("Profiling to %s", cfg.profile_dir)
         except Exception as e:  # noqa: BLE001
             log.warning("profiler unavailable: %s", e)
     try:
-        return _run_call_inner(cfg, index, dev)
+        return _run_call_inner(cfg, index, dev, device)
     finally:
         if prof is not None:
             try:
@@ -534,25 +646,115 @@ class _InflateBudget:
         return release
 
 
-def _run_call_inner(cfg: CallConfig, index: BronkoIndex,
-                    dev: DeviceIndex) -> list[SampleResult]:
+def _mesh_mapper(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
+                   device: torch.device) -> ShardedMapper | None:
+    """The mapper of --mesh DxG (None without it); exits 1 unless the
+    batch size divides by D*G (JAX engine.py:1460-1472)."""
+    if not cfg.mesh:
+        return None
+    n_data, n_genome = (int(x) for x in cfg.mesh.split("x"))
+    if cfg.batch_size % (n_data * n_genome):
+        log.error("batch size must be divisible by the mesh rank count (%d)",
+                  n_data * n_genome)
+        raise SystemExit(1)
+    log.info("Sharding the mapping pipeline over a %s mesh of ranks", cfg.mesh)
+    return ShardedMapper(index, cfg, dev, device)
+
+
+def _gather_results(results: list[SampleResult], result_ids: list[int],
+                    failures: list[str], failure_ids: list[int]):
+    """--shard-samples: every rank's results and failures, on every rank,
+    in global input order (JAX engine.py:1719-1746). Each result travels
+    without its pileup, which only its own rank holds; summaries and VCF
+    records are small at viral scale."""
+    payload = pickle.dumps(([(i, replace(r, pileup=None)) for i, r in zip(result_ids, results)],
+                            list(zip(failure_ids, failures))))
+    rows: dict[int, SampleResult] = {}
+    failed: list[tuple[int, str]] = []
+    for part in allgather_bytes(payload):
+        got, lost = pickle.loads(part)
+        rows.update(got)
+        failed += lost
+    rows.update(zip(result_ids, results))
+    return [rows[i] for i in sorted(rows)], [f for _, f in sorted(failed)]
+
+
+def _run_call_inner(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
+                    device: torch.device) -> list[SampleResult]:
+    global LAST_MESH_LAYOUTS
+    LAST_MESH_LAYOUTS = frozenset()  # a run that maps nothing keeps no old layouts
     os.makedirs(cfg.output, exist_ok=True)
     jobs = [[p] for p in cfg.reads] + [
         [r1, r2] for r1, r2 in zip(cfg.first_pairs, cfg.second_pairs)]
+    n_jobs = len(jobs)
+    mapper = _mesh_mapper(cfg, index, dev, device)
+    # sample-sharded cohort: whole samples round-robin over the ranks, no
+    # per-sample collectives (JAX engine.py:1478-1493)
+    rank, n_ranks = distributed.world()
+    shard_samples = cfg.shard_samples and n_ranks > 1
+    job_ids = list(range(n_jobs))[rank::n_ranks] if shard_samples else list(range(n_jobs))
+    jobs = [jobs[i] for i in job_ids]
+    if shard_samples:
+        log.info("sample-sharded cohort: rank %d of %d owns %d of %d samples",
+                 rank, n_ranks, len(jobs), n_jobs)
+    try:
+        results, result_ids, failures, failure_ids = _run_jobs(
+            cfg, index, dev, device, mapper, jobs, job_ids)
+    finally:
+        if mapper is not None:
+            mapper.close()
+    if shard_samples:
+        results, failures = _gather_results(results, result_ids, failures, failure_ids)
+
+    if failures and not results:
+        log.error("All samples failed")
+        raise SystemExit(1)
+    if failures:
+        log.warning("%d of %d samples processed; failed: %s",
+                    len(results), n_jobs, ", ".join(failures))
+    summaries = [r.summary for r in results]
+    log.info("Printing overview")
+    if is_primary():
+        write_overview(cfg.output, summaries)
+    if not failures:
+        log.info("All samples processed successfully")
+    if cfg.output_alignment:
+        log.info("Building alignment(s)")
+        if is_primary():
+            write_alignments(cfg.output, summaries,
+                             [(r.summary.filename, r.records) for r in results],
+                             index.files, log)
+    if mapper is not None:
+        LAST_MESH_LAYOUTS = frozenset(mapper.layouts_used)
+        log.info("mesh layouts used this run: %s", "+".join(sorted(mapper.layouts_used)))
+    log.info("bronko complete!")
+    return results
+
+
+def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: torch.device,
+              mapper: ShardedMapper | None, jobs: list[list[str]], job_ids: list[int]):
+    """The cohort pipeline over `jobs` (global input positions `job_ids`).
+    Returns (results, their positions, failed displays, their positions).
+    Collectives (under a mapper) run here on the main thread only, in
+    input order: the count workers and the caller thread issue none."""
     workers = _count_workers(len(jobs))
-    threads = max(1, cfg.threads // workers)
-    upload = len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions) > 0
+    # the ranks of one host share its cores
+    threads = max(1, cfg.threads // distributed.local_world_size() // workers)
+    upload = (mapper is None
+              and len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions) > 0)
     budget = None
     if cfg.counter in ("auto", "host") and native.get_lib() is not None:
         budget = _InflateBudget()
     results: list[SampleResult] = []
+    result_ids: list[int] = []
     failures: list[str] = []
+    failure_ids: list[int] = []
 
     with ThreadPoolExecutor(max_workers=workers) as pool, \
             ThreadPoolExecutor(max_workers=1) as call_pool, \
             ThreadPoolExecutor(max_workers=1) as inflate_pool:
         futures: list = []
-        call_futs: list = []  # (label, display, future)
+        call_futs: list = []  # (label, display, input position, future)
 
         def submit_upto(n: int) -> None:
             while len(futures) < min(n, len(jobs)):
@@ -564,7 +766,7 @@ def _run_call_inner(cfg: CallConfig, index: BronkoIndex,
                         release = budget.charge(p)
                         texts.append(None if release is None else inflate_pool.submit(
                             native.native_read_inflate, p, release))
-                futures.append(pool.submit(_count_job, job, cfg, index.k, dev.device,
+                futures.append(pool.submit(_count_job, job, cfg, index.k, device,
                                            threads, texts, upload))
 
         for ji, job in enumerate(jobs):
@@ -578,44 +780,29 @@ def _run_call_inner(cfg: CallConfig, index: BronkoIndex,
             try:
                 counted = fut.result()
                 _log_counted(display, counted.cstats, cfg, index.k)
-                log_memory_usage("Finished counting kmers", dev.device)
-                if cfg.keep_kmer_counts:
+                log_memory_usage("Finished counting kmers", device)
+                if cfg.keep_kmer_counts and (is_primary() or cfg.shard_samples):
                     _dump_counts(display, counted, cfg, index.k)
-                mapped = _map_one(counted, index, dev, cfg)
+                mapped = _map_one(counted, index, dev, cfg, mapper)
                 # the caller thread runs this sample while the next one
                 # maps; at most 2 samples wait for it
                 if len(call_futs) >= 2:
-                    wait([call_futs[-2][2]])
-                call_futs.append((label, display, call_pool.submit(
+                    wait([call_futs[-2][3]])
+                call_futs.append((label, display, job_ids[ji], call_pool.submit(
                     _call_one, display, index, dev, cfg, mapped,
                     counted.cstats.total_reads, counted.seconds)))
             except Exception:  # noqa: BLE001 — per-sample isolation
                 log.exception("Sample %s failed; continuing with remaining samples", label)
                 failures.append(display)
+                failure_ids.append(job_ids[ji])
 
-        for label, display, cf in call_futs:
+        for label, display, job_id, cf in call_futs:
             try:
                 results.append(cf.result())
-                log_memory_usage("Called variants successfully", dev.device)
+                result_ids.append(job_id)
+                log_memory_usage("Called variants successfully", device)
             except Exception:  # noqa: BLE001 — per-sample isolation
                 log.exception("Sample %s failed; continuing with remaining samples", label)
                 failures.append(display)
-
-    if failures and not results:
-        log.error("All samples failed")
-        raise SystemExit(1)
-    if failures:
-        log.warning("%d of %d samples processed; failed: %s",
-                    len(results), len(jobs), ", ".join(failures))
-    summaries = [r.summary for r in results]
-    log.info("Printing overview")
-    write_overview(cfg.output, summaries)
-    if not failures:
-        log.info("All samples processed successfully")
-    if cfg.output_alignment:
-        log.info("Building alignment(s)")
-        write_alignments(cfg.output, summaries,
-                         [(r.summary.filename, r.records) for r in results],
-                         index.files, log)
-    log.info("bronko complete!")
-    return results
+                failure_ids.append(job_id)
+    return results, result_ids, failures, failure_ids

@@ -4,25 +4,32 @@ Counterpart of `bronko_tpu/cli.py`, with a copy of its parser (the same
 flags, defaults and error exits) and of its `build`. The device comes from
 BRONKO_PLATFORM, as in the JAX package: `gpu` (the
 default) runs on the current CUDA device and exits 1 when there is none;
-`cpu` runs the kernels' plain PyTorch versions on the CPU. Flags outside
-this port's slice (the multi-device ones) exit 1 and point to ROADMAP.md.
+`cpu` runs the kernels' plain PyTorch versions on the CPU.
+
+Several processes, one a device, join through torch.distributed
+(parallel/distributed.py): launched by torchrun (`python -m
+torch.distributed.run --nproc-per-node N -m bronko_tpu_torch call ...`)
+or given --coordinator host:port --num-processes N --process-id R each.
+Each rank then runs on its own device; `--mesh DxG` shards one sample's
+mapping over the D*G ranks, `--shard-samples` spreads the samples.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
 import sys
 import time
 
 import torch
 
 from bronko_tpu_torch import consts
-from bronko_tpu_torch.config import BuildConfig, CallConfig, setup_logging
+from bronko_tpu_torch.config import BuildConfig, CallConfig, _fatal, setup_logging
 from bronko_tpu_torch.index.bincode_compat import save_reference_bkdb
 from bronko_tpu_torch.index.build import build_index
 from bronko_tpu_torch.index.store import load_index, save_index
+from bronko_tpu_torch.parallel import distributed
+from bronko_tpu_torch.parallel.distributed import init_distributed
 
 log = logging.getLogger("bronko")
 
@@ -117,16 +124,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=consts.DEFAULT_KEEP_KMER_INFO,
                    help="Keep kmer count information")
     c.add_argument("--batch-size", type=int, default=1 << 18,
-                   help="Device mapping batch size (TPU)")
+                   help="Device mapping batch size (k-mers)")
     c.add_argument("--chunk-reads", type=int, default=1 << 18,
                    help="Reads per device-counter chunk")
     c.add_argument("--counter", choices=("auto", "host", "device"), default="auto",
-                   help="K-mer counter: host C++ hash, device TPU sort, or auto")
+                   help="K-mer counter: host C++ hash, sort on the device, or auto")
     c.add_argument("--mesh", default=None,
-                   help="Device mesh 'DxG' (data-parallel x genome shards), e.g. 4x2")
+                   help="Mesh 'DxG' of D*G ranks, one device each (data-parallel "
+                        "x genome shards), e.g. 4x2")
     c.add_argument("--shard-samples", dest="shard_samples", action="store_true",
-                   help="Multi-host cohorts: partition samples across "
-                        "processes (each host runs its share end-to-end; "
+                   help="Cohorts over several ranks: partition samples across "
+                        "them (each runs its share end-to-end on its device; "
                         "rank 0 writes overview/alignment). Exclusive "
                         "with --mesh; assumes a shared output filesystem")
     c.add_argument("--profile-dir", dest="profile_dir", default=None,
@@ -136,12 +144,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Build the device index on-chip from genome codes "
                         "(auto: on for CUDA devices; off under --mesh)")
     c.add_argument("--coordinator", default=None,
-                   help="jax.distributed coordinator address host:port "
-                        "(multi-host; omit on TPU pods for auto-detection)")
+                   help="torch.distributed rendezvous address host:port, "
+                        "served by rank 0 (omit under torchrun, whose "
+                        "environment names it)")
     c.add_argument("--num-processes", dest="num_processes", type=int, default=None,
-                   help="Total process count for multi-host execution")
+                   help="Total rank count, one process a device")
     c.add_argument("--process-id", dest="process_id", type=int, default=None,
-                   help="This process's rank for multi-host execution")
+                   help="This process's rank")
     _add_common(c)
     return ap
 
@@ -157,25 +166,6 @@ def run_build(cfg: BuildConfig) -> None:
         save_index(out, index)
 
 
-def _refuse(what: str) -> None:
-    log.error("%s is not supported by bronko_tpu_torch yet (see ROADMAP.md)", what)
-    raise SystemExit(1)
-
-
-def resolve_device() -> torch.device:
-    """The device BRONKO_PLATFORM names: gpu (default) or cpu."""
-    platform = os.environ.get("BRONKO_PLATFORM", "").strip().lower() or "gpu"
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform != "gpu":
-        _refuse(f"BRONKO_PLATFORM={platform} (use gpu or cpu)")
-    if not torch.cuda.is_available():
-        log.error("BRONKO_PLATFORM=gpu but no CUDA device is available; set "
-                  "BRONKO_PLATFORM=cpu to run the plain PyTorch versions on the CPU")
-        raise SystemExit(1)
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 def call_config(args) -> CallConfig:
     return CallConfig(**{f: getattr(args, f) for f in CallConfig.__dataclass_fields__
                          if hasattr(args, f)})
@@ -184,18 +174,21 @@ def call_config(args) -> CallConfig:
 def builds_on_device(cfg: CallConfig, device: torch.device) -> bool:
     """--device-build: 'on' builds the device index on `device`, 'off' on
     the host; 'auto' on the device when it is a CUDA device, the rule of
-    the JAX package, whose auto builds on every backend but the CPU
-    (bronko_tpu/cli.py:165-172)."""
+    the JAX package, whose auto builds on every backend but the CPU, and
+    never under --mesh, whose splitter consumes the host arrays
+    (bronko_tpu/cli.py:165-172; config.py refuses 'on' with --mesh)."""
     if cfg.device_build == "auto":
-        return device.type == "cuda"
+        return device.type == "cuda" and cfg.mesh is None
     return cfg.device_build == "on"
 
 
 def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
     """Validate, build the index (on the host, or from the genomes'
     sequences on `device`: index/device_build.py), map and call every
-    sample on `device` (default: resolve_device()). Returns the engine's
-    per-sample results; exits 2 when some samples failed."""
+    sample on `device` (default: this rank's, distributed.rank_device()).
+    Under --mesh the full layout stays on the host and each rank uploads
+    its shard. Returns the engine's per-sample results; exits 2 when some
+    samples failed."""
     from bronko_tpu_torch.call.engine import run_call
     from bronko_tpu_torch.index.device_build import (
         build_device_index_on_device, device_build,
@@ -203,12 +196,8 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
     from bronko_tpu_torch.index.layout import build_device_index
 
     cfg.validate()
-    if cfg.mesh is not None:
-        _refuse("--mesh")
-    if cfg.shard_samples:
-        _refuse("--shard-samples")
     if device is None:
-        device = resolve_device()
+        device = distributed.rank_device()
     on_device = builds_on_device(cfg, device)
     try:
         if cfg.genomes:
@@ -228,8 +217,8 @@ def run_call_cmd(cfg: CallConfig, device: torch.device | None = None):
         log.error("%s | Unable to build/read index, exiting", e)
         raise SystemExit(1) from None
     if not on_device:
-        dev = build_device_index(index, device)
-    results = run_call(cfg, index, dev)
+        dev = build_device_index(index, torch.device("cpu") if cfg.mesh else device)
+    results = run_call(cfg, index, dev, device)
     if len(results) < len(cfg.reads) + len(cfg.first_pairs):
         raise SystemExit(2)  # partial failure: some samples were skipped
     return results
@@ -248,10 +237,16 @@ def main(argv: list[str] | None = None) -> int:
             bkdb_format=args.bkdb_format,
         ))
     else:
-        if any(getattr(args, f) is not None
-               for f in ("coordinator", "num_processes", "process_id")):
-            _refuse("--coordinator/--num-processes/--process-id")
-        run_call_cmd(call_config(args))
+        flags = (args.coordinator, args.num_processes, args.process_id)
+        if any(f is not None for f in flags) and any(f is None for f in flags):
+            _fatal("--coordinator, --num-processes and --process-id must be given together")
+        # before the device is resolved: a rank's device is its own
+        started = init_distributed(*flags)
+        try:
+            run_call_cmd(call_config(args))
+        finally:
+            if started:
+                distributed.shutdown()
     print(f"\nbronko-tpu-torch v{consts.BRONKO_TPU_VERSION} finished in "
           f"{time.time() - t0:.1f}s", file=sys.stderr)
     return 0

@@ -8,6 +8,7 @@ without relearning anything.
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from dataclasses import dataclass, field
 
@@ -24,6 +25,12 @@ class ConfigError(SystemExit):
 def _fatal(msg: str) -> None:
     log.error(msg)
     raise ConfigError(1)
+
+
+def platform() -> str:
+    """BRONKO_PLATFORM, lower-cased: 'gpu' (the default) or 'cpu'; any
+    other value is returned as given, for the caller to refuse."""
+    return os.environ.get("BRONKO_PLATFORM", "").strip().lower() or "gpu"
 
 
 def _check_k(k: int) -> None:
@@ -102,24 +109,24 @@ class CallConfig:
     threads: int = 4
     debug: bool = False
     verbose: bool = False
-    # TPU-specific knobs (no reference equivalent)
+    # device knobs (no reference equivalent)
     batch_size: int = 1 << 18
     chunk_reads: int = 1 << 18
-    counter: str = "auto"  # 'auto' | 'host' (C++ hash) | 'device' (TPU sort)
-    mesh: str | None = None  # 'DxG' device mesh, e.g. '4x2' = 4-way data
-    #  parallel x 2-way genome index sharding for the WHOLE mapping
-    #  pipeline (tally pass 1 + pileup pass 2); None = 1 device
-    profile_dir: str | None = None  # write a jax.profiler trace here
-    device_build: str = "auto"  # 'auto'|'on'|'off': derive the device index
-    #  on-chip from ~1MB of genome codes instead of uploading the host-built
-    #  arrays (auto = on for TPU backends; forced off under --mesh, whose
-    #  splitter needs the host arrays)
-    shard_samples: bool = False  # multi-host cohort mode: PARTITION samples
-    #  round-robin across processes (each runs the single-host pipeline on
-    #  its share and writes its own VCF/pileup; summaries gather to every
-    #  process and rank 0 writes overview/alignment). Higher cohort
-    #  throughput than SPMD-within-sample: zero per-sample collectives.
-    #  Assumes a shared output filesystem; exclusive with --mesh.
+    counter: str = "auto"  # 'auto' | 'host' (C++ hash) | 'device' (sort on the device)
+    mesh: str | None = None  # 'DxG' mesh of D*G torch.distributed ranks, one
+    #  device each, e.g. '4x2' = 4-way data parallel x 2-way genome index
+    #  sharding for the whole mapping pipeline (tally pass 1 + pileup
+    #  pass 2); None = 1 device
+    profile_dir: str | None = None  # write a torch.profiler trace here
+    device_build: str = "auto"  # 'auto'|'on'|'off': build the device index
+    #  on the device from the genomes' 2-bit codes instead of uploading the
+    #  host-built arrays (auto = on for a CUDA device; off under --mesh,
+    #  whose splitter needs the host arrays)
+    shard_samples: bool = False  # cohort mode over ranks: PARTITION samples
+    #  round-robin across torch.distributed ranks (each runs the one-device
+    #  pipeline on its share and writes its own VCF/pileup; results gather
+    #  to every rank and rank 0 writes overview/alignment). No per-sample
+    #  collectives. Assumes a shared output filesystem; exclusive with --mesh.
 
     def validate(self) -> None:  # mirrors call.rs:30-136
         _check_k(self.kmer)

@@ -131,15 +131,7 @@ class DeviceIndex:
         """Genome g's sub-index, from subindex_source at first use (host
         arrays are uploaded), then cached."""
         if g not in self._subindex:
-            keys, offsets, postings = self.subindex_source(g)
-            if not isinstance(keys, torch.Tensor):  # host arrays
-                keys = from_u64(np.asarray(keys, np.uint64), self.device)
-                offsets = torch.from_numpy(np.array(offsets, np.int32))
-                postings = torch.from_numpy(np.array(postings))
-            self._subindex[g] = SubIndex(
-                keys_ordered=keys.to(self.device) ^ SIGN_BIT,
-                offsets=offsets.to(self.device, torch.int32),
-                postings=postings.to(self.device))
+            self._subindex[g] = load_subindex(self.subindex_source(g), self.device)
         return self._subindex[g]
 
     def device_bytes(self) -> int:
@@ -149,6 +141,18 @@ class DeviceIndex:
         for sub in self._subindex.values():
             tensors += [sub.keys_ordered, sub.offsets, sub.postings]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def load_subindex(parts: tuple, device: torch.device) -> SubIndex:
+    """A subindex_source's (keys as uint64 bits, offsets, postings), host
+    arrays or tensors, as a SubIndex on `device`."""
+    keys, offsets, postings = parts
+    if not isinstance(keys, torch.Tensor):  # host arrays
+        keys = from_u64(np.asarray(keys, np.uint64), device)
+        offsets = torch.from_numpy(np.array(offsets, np.int32))
+        postings = torch.from_numpy(np.array(postings))
+    return SubIndex(keys_ordered=keys.to(device) ^ SIGN_BIT,
+                    offsets=offsets.to(device, torch.int32), postings=postings.to(device))
 
 
 def _hist_dtype(G: int, E: int):

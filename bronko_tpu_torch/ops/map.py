@@ -289,15 +289,20 @@ def pileup_from_subindex(batches, sub, lanes, cfg: MapConfig,
     """Pass 2 through the selected genome's sub-index `sub` (layout
     SubIndex): K1 queries probed over its keys (the last equal row), each
     hit's range walked in its genome-local postings. `lanes[i]` (a host
-    int) is batch i's walk length for the genome, as pass 1 counted it."""
+    int) is batch i's walk length for the genome, as pass 1 counted it;
+    with lanes None each batch's comes from its own probe (one host sync
+    a batch), as a rank of the mesh walks k-mers pass 1 did not count."""
     k, J = cfg.k, len(cfg.positions)
     row_len = (total_len + 1) * 4
     flat = torch.zeros(4 * row_len, dtype=torch.int32, device=sub.postings.device)
-    for (kmers, counts), n_lanes in zip(batches, lanes):
-        if int(n_lanes) == 0:
+    for i, (kmers, counts) in enumerate(batches):
+        if lanes is not None and int(lanes[i]) == 0:
             continue
         start, lens = _ranges(kmers, counts, sub.keys_ordered, sub.offsets, cfg=cfg)
+        n_lanes = int(lens.sum() if lanes is None else lanes[i])
+        if n_lanes == 0:
+            continue
         _walk_scatter(flat, _fold_table(kmers, counts, k), start.reshape(-1),
-                      lens.reshape(-1), int(n_lanes), sub.postings, J=J, k=k,
+                      lens.reshape(-1), n_lanes, sub.postings, J=J, k=k,
                       row_len=row_len, file_base=0)
     return flat.reshape(4, total_len + 1, 4)

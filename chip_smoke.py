@@ -56,9 +56,19 @@ Phases, one line each; any failure exits non-zero:
      route in turns, K1 and K3 launches and the device peak of the card's
      build; then `call -g strain*.fasta --device-build on` equals phase
      8's files;
- 12. warm: N (default 1) more samples with each counter, in turns, with
+ 12. mesh: (a) `call --mesh 1x1 -d -r s0 --pileup` in this process on a
+     one-rank NCCL group, K1 and K2 launches read around it; (b) `--mesh
+     2x2 --counter device` on s0 in 4 rank processes joined by the three
+     flags, sharing the card over gloo (K1, K2 and K3 launched on every
+     rank); (c) the 32-strain panel on `--mesh 1x2` (words mode, genome-
+     sharded); (d) `--shard-samples` over s0-s2 on 2 ranks. Each run's
+     files equal its one-device run's (phases 5, 8 and a one-process
+     cohort); wall seconds beside the card's name: one card shows the
+     paths correct, not their scaling. The rank processes block jax and
+     bronko_tpu too;
+ 13. warm: N (default 1) more samples with each counter, in turns, with
      their stage seconds;
- 13. the script's own wall time, the kernels line, the card's name and
+ 14. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
 """
 
@@ -95,6 +105,7 @@ from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # n
 from bronko_tpu_torch.ops import map as tmap  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
+from bronko_tpu_torch.parallel import distributed  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, ".smoke_cache")
@@ -126,6 +137,7 @@ PANEL_STRAINS = 32  # README's SARS-scale panel: 4 histogram words of 8 genomes
 PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
 PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
 PANEL_REPS = 5
+MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -865,6 +877,142 @@ def phase_device_build(genome_paths: list[str], panel: list[str], fastq: str, wo
     return launches
 
 
+# a rank of the mesh phase: `python -m bronko_tpu_torch` with jax and
+# bronko_tpu blocked, as in this script; prints its launch counts last
+RANK_WRAPPER = """
+import json, runpy, sys
+sys.modules["jax"] = None
+sys.modules["bronko_tpu"] = None
+sys.argv = ["bronko_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("bronko_tpu_torch", run_name="__main__")
+finally:
+    from bronko_tpu_torch.ops import cuda_lib
+    print("LAUNCHES " + json.dumps(cuda_lib.LAUNCHES), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(n: int, argv: list[str], work: str, tag: str) -> tuple[list[dict], float]:
+    """`call argv` in n rank processes on this card, joined by the three
+    flags on localhost (n ranks on one card: gloo). Returns each rank's
+    launch counts (counted in the rank from 0) and the wall seconds; fails
+    the phase unless every rank exits 0, and kills every rank past
+    MESH_TIMEOUT."""
+    port = _free_port()
+    logs = [os.path.join(work, f"mesh_{tag}.{r}.log") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(n):
+        with open(logs[r], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_WRAPPER, "call", *argv, "--coordinator",
+                 f"127.0.0.1:{port}", "--num-processes", str(n), "--process-id", str(r)],
+                cwd=REPO, stdout=fh, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    launches = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as fh:
+            text = fh.read()
+        if p.returncode != 0:
+            fail("mesh", f"{tag}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        if "backend gloo (ranks share a card)" not in text:
+            fail("mesh", f"{tag}: rank {r} did not run gloo over the shared card")
+        launches.append(json.loads(text.rsplit("LAUNCHES ", 1)[1].splitlines()[0]))
+    return launches, wall
+
+
+def phase_mesh(db: str, panel_db: str, fastqs: list[str], work: str, smi: str) -> dict:
+    """--mesh and --shard-samples on this one card: (a) a 1x1 mesh in this
+    process on a one-rank NCCL group, (b) a 2x2 mesh of 4 ranks sharing
+    the card over gloo with the device counter, (c) the 32-strain panel
+    on a 1x2 mesh (words, genome-sharded), (d) --shard-samples on 2
+    ranks; each byte-equal to its one-device run. One card shows that
+    the paths are correct, not how they scale."""
+    fastq = fastqs[0]
+    walls = {}
+    distributed.init_world_of_one()
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        fail("mesh", f"the world of one on the card runs {backend}, not nccl")
+    out = os.path.join(work, "mesh_1x1")
+    t0 = time.perf_counter()
+    try:
+        (res, launches_a) = drive(lambda: run_call(db, fastq, out, None, "host", "--mesh", "1x1"))
+    finally:
+        distributed.shutdown()
+    walls["a"] = time.perf_counter() - t0
+    if read_outputs(out) != read_outputs(os.path.join(work, "gpu")):
+        fail("mesh", "(a) --mesh 1x1 on NCCL: files differ from the main phase's")
+    if any(launches_a[n] == 0 for n in ("bucket_queries", "fold_table")):
+        fail("mesh", f"(a) K1 or K2 never launched on the 1x1 mesh: {launches_a}")
+    print(f"[mesh] (a) --mesh 1x1 in this process on a one-rank NCCL group: files equal the "
+          f"main phase's; path {res.path}; launches {launches_a}; wall {walls['a']:.4f}s "
+          f"({smi})", flush=True)
+
+    def check_ranks(tag, launches, kernels):
+        missing = [(r, n) for r, counts in enumerate(launches) for n in kernels if counts[n] == 0]
+        if missing:
+            fail("mesh", f"{tag}: (rank, kernel) never launched: {missing}")
+
+    out = os.path.join(work, "mesh_2x2")
+    launches_b, walls["b"] = run_ranks(
+        4, ["-d", db, "-r", fastq, "-o", out, "--pileup", "--mesh", "2x2",
+            "--counter", "device"], work, "2x2")
+    check_ranks("(b)", launches_b, ("bucket_queries", "fold_table", "pack_windows"))
+    if read_outputs(out) != read_outputs(os.path.join(work, "gpu")):
+        fail("mesh", "(b) --mesh 2x2: files differ from the main phase's")
+    print(f"[mesh] (b) --mesh 2x2, 4 ranks sharing the card over gloo, --counter device: files "
+          f"equal the main phase's; launches by rank {launches_b}; wall {walls['b']:.4f}s, "
+          f"rank start-up included ({smi})", flush=True)
+
+    out = os.path.join(work, "mesh_panel_1x2")
+    launches_c, walls["c"] = run_ranks(
+        2, ["-d", panel_db, "-r", fastq, "-o", out, "--pileup", "--mesh", "1x2"], work, "panel")
+    check_ranks("(c)", launches_c, ("bucket_queries", "fold_table"))
+    if read_outputs(out) != read_outputs(os.path.join(work, "panel_gpu")):
+        fail("mesh", "(c) the 32-strain panel on --mesh 1x2: files differ from the panel phase's")
+    print(f"[mesh] (c) 32-strain panel, --mesh 1x2 (words, 16 strains a rank): files equal the "
+          f"panel phase's; launches by rank {launches_c}; wall {walls['c']:.4f}s ({smi})",
+          flush=True)
+
+    single = os.path.join(work, "mesh_cohort_single")
+    res, walls["d single"] = run_cohort(db, fastqs, single)
+    if isinstance(res, int) or len(res) != len(fastqs):
+        fail("mesh", f"(d) the one-process cohort returned {res}")
+    out = os.path.join(work, "mesh_shard_samples")
+    launches_d, walls["d"] = run_ranks(
+        2, ["-d", db, "-r", *fastqs, "-o", out, "--pileup", "--shard-samples"], work, "shard")
+    check_ranks("(d)", launches_d, ("bucket_queries", "fold_table"))
+    if read_outputs(out) != read_outputs(single):
+        fail("mesh", "(d) --shard-samples: files differ from the one-process cohort's")
+    print(f"[mesh] (d) --shard-samples, {len(fastqs)} samples on 2 ranks: every VCF, pileup and "
+          f"the overview equal the one-process cohort's; launches by rank {launches_d}; wall "
+          f"{walls['d']:.4f}s against {walls['d single']:.4f}s in one process, rank start-up "
+          f"included ({smi})", flush=True)
+    print(f"[mesh] wall seconds {json.dumps(walls)}: "
+          f"one card shows the mesh paths correct, not their scaling ({smi})", flush=True)
+    return {"1x1": launches_a, "2x2": launches_b, "panel 1x2": launches_c,
+            "shard-samples": launches_d}
+
+
 def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
     """n more samples with each counter, in turns (host, device, device,
     host, ...); with n > 1 also each stage's median (q1, q3)."""
@@ -965,6 +1113,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     phase_profile(db + ".bkdb", fastq, work, smi)
     build_launches = phase_device_build(genome_paths, make_panel(genome_paths[0]), fastq, work,
                                         smi)
+    mesh_launches = phase_mesh(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs, work,
+                               smi)
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
 
     # each kernel's launches on its own path: K1 and K2 on the main path,
@@ -972,7 +1122,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     launches["pack_windows"] = count_launches["pack_windows"]
     launches["gather"] = rows["gather"]["launches"]
     print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
-          f"cohort {cohort_launches}; the card's index builds {build_launches}", flush=True)
+          f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
+          f"{mesh_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

@@ -165,12 +165,16 @@ def test_counter_choice(synth, monkeypatch, caplog, counter, native_ok, used):
     import bronko_tpu_torch.call.engine as engine
 
     tmp, genomes, (fq0, _) = synth
+    index = build_index(21, genomes)
+    want = tmp / "choice_reference"
+    if not want.exists():  # the host counter's files, made before any breakage
+        run_call(CallConfig(genomes=genomes, reads=[fq0], output=str(want), counter="host"),
+                 index, build_device_index(index, CPU))
     if not native_ok:
         def broken():
             raise RuntimeError("building the native library failed")
         monkeypatch.setattr(engine, "native_lib", broken)
     caplog.set_level("INFO", logger="bronko")
-    index = build_index(21, genomes)
     out = tmp / f"choice_{counter}_{native_ok}"
     cfg = CallConfig(genomes=genomes, reads=[fq0], output=str(out), counter=counter)
     if used is None:
@@ -180,10 +184,6 @@ def test_counter_choice(synth, monkeypatch, caplog, counter, native_ok, used):
         return
     run_call(cfg, index, build_device_index(index, CPU))
     assert f"with the {used} counter" in caplog.text
-    want = tmp / "choice_reference"
-    if not want.exists():
-        run_call(CallConfig(genomes=genomes, reads=[fq0], output=str(want), counter="host"),
-                 index, build_device_index(index, CPU))
     assert _outputs(out) == _outputs(want)
 
 
@@ -204,11 +204,11 @@ def test_cli_device_counter_matches_jax(synth, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["-k", "20"],                               # validation: even k
-    ["--mesh", "2x1"],
-    ["--shard-samples"],
-    ["--num-processes", "2"],
+    ["--mesh", "2x1"],                          # a mesh of 2 ranks on a world of 1
+    ["--shard-samples", "--mesh", "1x1"],       # validation: exclusive
+    ["--num-processes", "2"],                   # the three flags go together
     ["--mesh", "1x1", "--device-build", "on"],  # validation: the mesh needs the host build
-    ["--coordinator", "localhost:1234", "--num-processes", "1", "--process-id", "0"],
+    ["--mesh", "2x2", "--batch-size", "4098"],  # the batch must divide over the ranks
 ])
 def test_cli_refuses_with_exit_1(synth, monkeypatch, extra):
     tmp, genomes, (fq0, _) = synth

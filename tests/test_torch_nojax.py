@@ -1,6 +1,7 @@
 """The port needs nothing of JAX and nothing of the JAX package: its build +
-call (with the host and the device counter, and on a nine-genome panel)
-run with `jax` and `bronko_tpu` blocked, and no source of the port, nor
+call (with the host and the device counter, on a mesh of one rank, and on
+a nine-genome panel) run with `jax` and `bronko_tpu` blocked, and no
+source of the port (the parallel/ modules too), nor
 chip_smoke.py, imports either or reads a path under bronko_tpu/."""
 
 import ast
@@ -47,7 +48,12 @@ SCRIPT = textwrap.dedent("""
     for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
         assert (open(os.path.join(tmp, "out_device", f)).read()
                 == open(os.path.join(tmp, "out", f)).read()), f
-    panel = [os.path.join(tmp, "ref.fasta")]  # nine genomes: the multi-word histogram
+    assert cli.main(["call", "-d", db + ".bkdb", "-r", os.path.join(tmp, "s.fastq.gz"),
+                     "-o", os.path.join(tmp, "out_mesh"), "--pileup", "--mesh", "1x1"]) == 0
+    for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+        assert (open(os.path.join(tmp, "out_mesh", f)).read()
+                == open(os.path.join(tmp, "out", f)).read()), f
+    panel =[os.path.join(tmp, "ref.fasta")]  # nine genomes: the multi-word histogram
     for i in range(8):
         g = bytearray(genome)
         for p in rng.integers(0, len(g), 6):
@@ -134,7 +140,8 @@ def test_sources_import_no_jax():
     """No source imports jax or the JAX package; the port has its own host
     modules (consts, config, io, index, call) and native sources."""
     assert len(SOURCES) >= 25
-    for sub in ("consts.py", "config.py", "io/native.py", "index/store.py", "call/noise.py"):
+    for sub in ("consts.py", "config.py", "io/native.py", "index/store.py", "call/noise.py",
+                "parallel/distributed.py", "parallel/mesh.py", "parallel/pipeline.py"):
         assert os.path.join("bronko_tpu_torch", sub) in SOURCES, sub
     assert {s: f for s in SOURCES if (f := _source_faults(s))} == {}
 
