@@ -78,7 +78,8 @@ from bronko_tpu_torch.parallel import distributed
 from bronko_tpu_torch.parallel.distributed import allgather_bytes, is_primary
 from bronko_tpu_torch.parallel.mesh import make_mesh
 from bronko_tpu_torch.parallel.pipeline import (
-    sharded_pileup, sharded_tally, split_index, upload_shard,
+    route_split, routed_pileup, routed_tally, sharded_pileup, sharded_tally, split_index,
+    upload_chunk, upload_shard,
 )
 from bronko_tpu_torch.utils.memory import log_memory_usage
 
@@ -475,20 +476,28 @@ def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Te
 
 class ShardedMapper:
     """Both passes of a sample over a DxG mesh of ranks, one device each
-    (JAX engine.py:175-237, :300-403, :492-533):
+    (JAX engine.py:175-581), in one of three layouts, chosen per sample
+    by place_batches as JAX's engine chooses:
 
-      * pass 1: the rank's batches (place_batches) probe its genome shard
-        with K1; hits sum over the genome group before classification,
-        tallies over the data group (parallel/pipeline.sharded_tally);
-      * pass 2: the selected genome's sub-index, cut from the host index
-        through dev.subindex_source, sits on every rank; each rank walks
-        its share of its own batches (K1 + K2) and the pileups merge over
-        the world (pipeline.sharded_pileup).
+      * batchwise / B-split pass 1: the rank's batches probe its genome
+        shard with K1; hits sum over the genome group before
+        classification, tallies over the data group
+        (parallel/pipeline.sharded_tally); pass 2: the selected genome's
+        sub-index, cut from the host index through dev.subindex_source,
+        sits on every rank; each rank walks its share of its own batches
+        (K1 + K2) and the pileups merge over the world
+        (pipeline.sharded_pileup);
+      * routed pass 1 (B-split batches, D > 1, a histogram, and JAX's
+        crossover, routed_wins): rank (d, g) holds chunk d of shard g's
+        rows (pipeline.route_split) and each query travels to its chunk
+        and back over the data group (pipeline.routed_tally). On a Dx1
+        mesh with the histogram word and postings grouped by genome it
+        saves its probe, and pass 2 walks each rank's own slice from it
+        (pipeline.routed_pileup); otherwise pass 2 is the sub-index one.
 
-    Sums and maxima, so both equal the single-device passes exactly. `dev`
-    is the full layout on the host: a rank uploads only its shard and the
-    sub-indexes. JAX's routed layout is not ported: a sample JAX would
-    route runs B-split here, with the same output."""
+    Sums and maxima, so every layout equals the single-device passes
+    exactly. `dev` is the full layout on the host: a rank uploads only its
+    shard, its routed chunk, and the sub-indexes or shard 0's postings."""
 
     def __init__(self, index: BronkoIndex, cfg: CallConfig, dev: DeviceIndex,
                  device: torch.device):
@@ -496,33 +505,56 @@ class ShardedMapper:
         self.mesh = make_mesh(n_data, n_genome)
         self.device = device
         self.dev = dev
-        sharded = split_index(index, n_genome)
-        self.mode = sharded.tally_mode()
-        self.shard = upload_shard(sharded.shards[self.mesh.g], self.mode, device)
-        self.layouts_used: set[str] = set()  # 'batchwise' / 'bsplit' of pass 1
+        self.sharded = split_index(index, n_genome)
+        self.mode = self.sharded.tally_mode()
+        self.shard = upload_shard(self.sharded.shards[self.mesh.g], self.mode, device)
+        self.J = len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions)
+        self.layouts_used: set[str] = set()  # 'batchwise' / 'bsplit' / 'routed' of pass 1
+        self._layout = "bsplit"  # the layout place_batches chose for the sample
+        self._chunk = None       # this rank's routed chunk, at the first routed sample
+        self._postings = None    # shard 0's postings, at the first routed pass 2
+        self._saved = None       # the routed pass 1's (saved probe, own walk lengths)
         self._subs: dict = {}
 
     def close(self) -> None:
         self.mesh.close()
 
+    def routed_wins(self, n_kmers: int, batch_size: int) -> bool:
+        """JAX's crossover between the routed and the B-split pass 1
+        (engine.py:405-431): (D-1)*U*20 > 3*N2, from JAX's own quantities:
+        U the largest shard's rows (JAX pads every shard to them), N2 the
+        lanes of JAX's batch (engine.py:131-137: a sample of one batch
+        gets its lane class, the others batch_size) times J."""
+        D, G = self.mesh.n_data, self.mesh.n_genome
+        U = max(1, max(s.keys.shape[0] for s in self.sharded.shards))
+        width = batch_size
+        if n_kmers <= batch_size:
+            width = min(batch_size, _lane_class(n_kmers, floor=1 << 14, multiple=D * G))
+        return (D - 1) * U * 20 > 3 * width * self.J
+
     def place_batches(self, kmers: np.ndarray, counts: np.ndarray, batch_size: int):
         """This rank's pass-1 batches of the sample's host k-mers and counts,
-        on its device: whole batches of its data row when the batch count
-        divides by D (batchwise), else every batch deinterleaved, row d
-        taking [d::D] of each (B-split; JAX engine.py:310-337). JAX pads
-        the batch count to a power of two and the port pads nothing, so
-        the two may take different layouts for one sample; the tallies
-        and pileup cannot differ."""
+        on its device, in the layout JAX's engine takes for the sample
+        (engine.py:122-146, :310-337, :388-394). JAX pads a sample of
+        several batches to a power of two of them; when that count
+        divides by D, row d takes its 1/D of the padded batches (batchwise;
+        the port pads nothing, so the last rows may hold fewer batches, or
+        none). Otherwise every batch is deinterleaved, row d taking [d::D]
+        of each (B-split, or routed where routed_wins)."""
         D, d = self.mesh.n_data, self.mesh.d
-        nb = -(-kmers.shape[0] // batch_size)
-        batchwise = nb >= D and nb % D == 0
-        self.layouts_used.add("batchwise" if batchwise else "bsplit")
+        n = kmers.shape[0]
+        nb = -(-n // batch_size)
+        padded = 1 << (nb - 1).bit_length() if nb > 1 else nb
+        batchwise = padded >= D and padded % D == 0
+        routed = (not batchwise and nb > 0 and D > 1 and self.mode in ("hist", "words")
+                  and self.routed_wins(n, batch_size))
+        self._layout = "batchwise" if batchwise else "routed" if routed else "bsplit"
         if batchwise:
-            lo, hi = d * (nb // D) * batch_size, (d + 1) * (nb // D) * batch_size
+            lo, hi = d * (padded // D) * batch_size, (d + 1) * (padded // D) * batch_size
             return to_batches(kmers[lo:hi], counts[lo:hi], batch_size, self.device)
         if nb == 0:
             return []
-        starts = range(0, kmers.shape[0], batch_size)
+        starts = range(0, n, batch_size)
         ks = [kmers[i:i + batch_size][d::D] for i in starts]
         cs = [counts[i:i + batch_size][d::D] for i in starts]
         sizes = [k.shape[0] for k in ks]
@@ -531,8 +563,23 @@ class ShardedMapper:
         return list(zip(km.split(sizes), ct.split(sizes)))
 
     def run_tallies(self, batches, mcfg) -> Pass1:
-        out = sharded_tally(batches, self.shard, mcfg, self.mode, self.mesh)
-        return Pass1(out[:, :3], out[None, :, 3], None, (self.mode, "subindex"))
+        """Pass 1 in the layout place_batches chose; the routed one saves
+        its probe for pass 2 on a Dx1 mesh with the histogram word and
+        postings grouped by genome (JAX engine.py:475-476)."""
+        self._saved = None
+        self.layouts_used.add(self._layout)
+        if self._layout != "routed":
+            out = sharded_tally(batches, self.shard, mcfg, self.mode, self.mesh)
+            return Pass1(out[:, :3], out[None, :, 3], None, (self.mode, "subindex"))
+        if self._chunk is None:
+            chunks, bounds = route_split(self.sharded, self.mesh.n_data)
+            self._chunk = upload_chunk(chunks, bounds, self.mesh.g, self.mesh.d, self.device)
+        save = self.mesh.n_genome == 1 and self.mode == "hist" and self.dev.fid_grouped
+        out, saved, own = routed_tally(batches, self._chunk, mcfg, self.mode, self.mesh, save)
+        if save:
+            self._saved = (saved, own)
+        return Pass1(out[:, :3], out[None, :, 3], None,
+                     (self.mode, "saved" if save else "subindex"))
 
     def pass2_share(self, batches):
         """This rank's share of its pass-1 batches for pass 2: the D*G
@@ -545,15 +592,39 @@ class ShardedMapper:
         return [(km[g::G].contiguous(), ct[g::G].contiguous()) for km, ct in batches]
 
     def run_pileup(self, batches, mcfg, best: int, total_len: int) -> torch.Tensor:
-        """The merged (4, total_len+1, 4) pileup of genome `best`."""
+        """The merged (4, total_len+1, 4) pileup of genome `best`: from the
+        routed pass 1's saved probe when it saved one, else through the
+        genome's sub-index."""
+        if self._saved is not None:
+            (saved, own), self._saved = self._saved, None
+            if self._postings is None:
+                self._postings = torch.from_numpy(self.sharded.shards[0].postings).to(
+                    self.device)
+            return routed_pileup(batches, saved, own, self._postings, best,
+                                 int(self.dev.file_bases[best]), mcfg, total_len)
         if best not in self._subs:
             self._subs[best] = load_subindex(self.dev.subindex_source(best), self.device)
         return sharded_pileup(self.pass2_share(batches), self._subs[best], mcfg, total_len,
                               self.mesh)
 
 
+def _lane_class(n: int, floor: int = 1 << 16, multiple: int = 1) -> int:
+    """Smallest size of the form {1, 1.25, 1.5, 1.75}*2^m covering n and
+    divisible by `multiple`: the JAX engine's batch width for a sample of
+    one batch (engine.py:584-600), which routed_wins reads."""
+    n = max(int(n), floor, multiple)
+    p = 1 << (n - 1).bit_length()
+    h = p >> 1
+    for cand in (h + (h >> 2), h + (h >> 1), h + (h >> 1) + (h >> 2),
+                 p, p + (p >> 2), p + (p >> 1), p + (p >> 1) + (p >> 2),
+                 p << 1):
+        if cand >= n and cand % multiple == 0:
+            return cand
+    return -(-n // multiple) * multiple
+
+
 # pass 1's layouts the most recent --mesh run_call used ('batchwise',
-# 'bsplit'); plain strings, so nothing on a device is held (JAX
+# 'bsplit', 'routed'); plain strings, so nothing on a device is held (JAX
 # engine.py:1420-1424)
 LAST_MESH_LAYOUTS: frozenset = frozenset()
 

@@ -127,6 +127,18 @@ class DeviceIndex:
                 np.ascontiguousarray(self.fid_source(), np.int32)).to(self.device)
         return self._fids
 
+    def global_postings(self) -> torch.Tensor:
+        """(P,) int64 gpos<<22 | file_id<<6 | canonical<<5 | idx, the whole
+        index's postings in the global pileup space (ops/map.map_batch's):
+        the int64 postings, or, where only the genome-local int32 ones
+        exist, their position moved by file_bases[file_id]. Not cached."""
+        if self.postings is not None:
+            return self.postings
+        fids = self.posting_fids().long()
+        local = self.postings_local32.long()
+        bases = torch.from_numpy(self.file_bases).to(self.device)[fids]
+        return (((local >> 6) + bases) << 22) | (fids << 6) | (local & 63)
+
     def subindex(self, g: int) -> SubIndex:
         """Genome g's sub-index, from subindex_source at first use (host
         arrays are uploaded), then cached."""

@@ -27,6 +27,11 @@ add give the same result in any order. Every walk is exact — its length
 comes from pass 1 — so the JAX path's lane budget, overflow retry and
 dump-row masking have no job.
 
+WHOLE INDEX — probe_scatter / map_batch (JAX's, the step entry.py and the
+mesh's map step drive): one batch's K1 probe, the exact walk of every
+genome's postings at their global position, the K2 fold and the scatter
+into the all-genome pileup, with hits by posting genome.
+
 Every function takes tensors on one device; K1 and K2 dispatch on it
 (ops/cuda_buckets.py).
 """
@@ -234,12 +239,13 @@ def _fold_table(kmers: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tens
 
 
 def _walk_scatter(flat, pc, startf, lensf, n_lanes: int, postings, *, J: int, k: int,
-                  row_len: int, file_base: int) -> None:
+                  row_len: int, file_base: int):
     """Walk the (k-mer, bucket) rows' posting ranges and scatter into the
     flat pileup: max of the k-mer count into the depth planes, +1 into the
     count planes. int32 postings are genome-local lpos<<6 | canon<<5 |
     idx; int64 ones are pos<<22 | meta, pos shifted by -file_base into
-    the genome's local space (JAX _scatter_lanes)."""
+    the genome's local space (JAX _scatter_lanes). Returns each lane's
+    (row, posting)."""
     own, at = _walk(startf, lensf, n_lanes)
     post = postings[at]
     if post.dtype == torch.int32:
@@ -256,6 +262,7 @@ def _walk_scatter(flat, pc, startf, lensf, n_lanes: int, postings, *, J: int, k:
     cnt_at = torch.where(fwd, PLANE_CNT_FWD * row_len, PLANE_CNT_REV * row_len) + cell
     flat.scatter_reduce_(0, depth_at, v >> 5, reduce="amax")
     flat.index_add_(0, cnt_at, torch.ones_like(v))
+    return own, post
 
 
 def pileup_from_saved(batches, saved, lanes, postings: torch.Tensor,
@@ -306,3 +313,39 @@ def pileup_from_subindex(batches, sub, lanes, cfg: MapConfig,
                       lens.reshape(-1), n_lanes, sub.postings, J=J, k=k,
                       row_len=row_len, file_base=0)
     return flat.reshape(4, total_len + 1, 4)
+
+
+def probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup, *, cfg: MapConfig):
+    """One batch against a whole index, or one genome shard of it (JAX
+    probe_scatter, map.py:122-170): K1 probes the keys, each hit bucket's
+    postings are walked exactly at their position in the pileup's space,
+    K2's fold table decodes them into the depth and count planes of a copy
+    of `pileup` ((4, T+1, 4) int32), and every posting counts one hit for
+    its genome. The walk is exact, so there is no lane budget and no
+    overflow flag. `postings` are int64 pos<<22 | fid<<6 | canon<<5 | idx
+    (DeviceIndex.global_postings, or a shard's). Returns (pileup, hits
+    (B, G) int32)."""
+    k, J, G = cfg.k, len(cfg.positions), cfg.num_genomes
+    B = kmers.shape[0]
+    start, lens = _ranges(kmers, counts, keys_ordered, offsets, cfg=cfg)
+    lensf = lens.reshape(-1)
+    n_lanes = int(lensf.sum())
+    flat = pileup.reshape(-1).clone()
+    hits = torch.zeros(B * G, dtype=torch.int32, device=kmers.device)
+    if n_lanes:
+        own, post = _walk_scatter(flat, _fold_table(kmers, counts, k), start.reshape(-1),
+                                  lensf, n_lanes, postings, J=J, k=k,
+                                  row_len=pileup.shape[1] * 4, file_base=0)
+        at = (own // J) * G + ((post & 0x3FFFFF) >> 6)
+        hits.index_add_(0, at, torch.ones_like(at, dtype=torch.int32))
+    return flat.reshape(pileup.shape), hits.reshape(B, G)
+
+
+def map_batch(kmers, counts, keys_ordered, offsets, postings, pileup, tallies, *,
+              cfg: MapConfig):
+    """One mapping step over the whole index (JAX map_batch, map.py:343-350):
+    probe_scatter, and the batch's perfect / variant / unique counts added
+    to `tallies`. Returns (pileup, tallies), both new tensors."""
+    pileup, hits = probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup,
+                                 cfg=cfg)
+    return pileup, tallies + classify_tallies(hits, counts > 0, len(cfg.positions))

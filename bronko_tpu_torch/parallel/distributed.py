@@ -15,10 +15,11 @@ store, so each knows its local rank and how many ranks share its host.
 The backend is NCCL when every rank has a card of its own on its host,
 and gloo otherwise: on the CPU, or when several ranks share one card
 (NCCL refuses two ranks on one GPU). Gloo then moves each collective's
-CUDA tensor through host memory here, explicitly (`all_reduce`); the
-mapping itself stays on the card. Collectives have a finite timeout
-(DIST_TIMEOUT), so a rank that dies ends the run instead of hanging it,
-and a collective that fails ends the run (exit 1) rather than one sample.
+CUDA tensor through host memory here, explicitly (`all_reduce`,
+`all_to_all`); the mapping itself stays on the card. Collectives have a
+finite timeout (DIST_TIMEOUT), so a rank that dies ends the run instead
+of hanging it, and a collective that fails ends the run (exit 1) rather
+than one sample.
 
 File outputs are written by rank 0 alone (`is_primary`) unless each rank
 owns its samples (`--shard-samples`); every rank holds the same merged
@@ -31,6 +32,8 @@ from __future__ import annotations
 import logging
 import os
 import socket
+import time
+from contextlib import contextmanager
 from datetime import timedelta
 
 import torch
@@ -44,6 +47,10 @@ DIST_TIMEOUT = timedelta(minutes=10)
 
 # (local rank, ranks on this host), set when this module starts a group
 _local = (0, 1)
+# host wall seconds this process has spent in its collectives, waiting
+# for its peers included (under gloo a call blocks, and a CUDA
+# tensor's copies through host memory count; under NCCL only the enqueue)
+EXCHANGE_SECONDS = 0.0
 
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -145,6 +152,22 @@ def is_primary() -> bool:
     return world()[0] == 0
 
 
+@contextmanager
+def _collective():
+    """Around one collective: its host wall seconds go to EXCHANGE_SECONDS,
+    and a failure ends the run (exit 1), since the ranks' sequences of
+    collectives would diverge."""
+    global EXCHANGE_SECONDS
+    t0 = time.perf_counter()
+    try:
+        yield
+    except Exception as e:  # noqa: BLE001 — a peer died, timed out, or refused
+        log.error("a collective failed: %s", e)
+        raise SystemExit(1) from e
+    finally:
+        EXCHANGE_SECONDS += time.perf_counter() - t0
+
+
 def all_reduce(t: torch.Tensor, op, group=None) -> None:
     """In-place all_reduce of `t` over `group` (default: the world). A CUDA
     tensor under gloo goes through host memory; an empty tensor is left
@@ -152,16 +175,32 @@ def all_reduce(t: torch.Tensor, op, group=None) -> None:
     ends the run: the ranks' sequences of collectives would diverge."""
     if t.numel() == 0:
         return
-    try:
+    with _collective():
         if t.is_cuda and dist.get_backend(group) == "gloo":
             host = t.cpu()
             dist.all_reduce(host, op=op, group=group)
             t.copy_(host)
         else:
             dist.all_reduce(t, op=op, group=group)
-    except Exception as e:  # noqa: BLE001 — a peer died, timed out, or refused
-        log.error("a collective failed: %s", e)
-        raise SystemExit(1) from e
+
+
+def all_to_all(t: torch.Tensor, in_splits: list[int], out_splits: list[int],
+               group=None) -> torch.Tensor:
+    """all_to_all_single over `group`: the first in_splits[r] rows of `t`
+    (after those for the ranks before r) go to the group's rank r, and
+    the rows received, out_splits[r] from rank r, come back in rank
+    order. Split sizes are Python ints, each matching its peer's; every
+    rank enters, an empty part too. A CUDA tensor under gloo goes through
+    host memory; a failure ends the run, as all_reduce's does."""
+    out = torch.empty((sum(out_splits), *t.shape[1:]), dtype=t.dtype, device=t.device)
+    with _collective():
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = torch.empty(out.shape, dtype=t.dtype)
+            dist.all_to_all_single(host, t.cpu(), out_splits, in_splits, group=group)
+            out.copy_(host)
+        else:
+            dist.all_to_all_single(out, t.contiguous(), out_splits, in_splits, group=group)
+    return out
 
 
 def allgather_bytes(data: bytes) -> list[bytes]:
@@ -171,9 +210,6 @@ def allgather_bytes(data: bytes) -> list[bytes]:
     if size == 1:
         return [data]
     out: list = [None] * size
-    try:
+    with _collective():
         dist.all_gather_object(out, data)
-    except Exception as e:  # noqa: BLE001
-        log.error("a collective failed: %s", e)
-        raise SystemExit(1) from e
     return out

@@ -60,15 +60,23 @@ Phases, one line each; any failure exits non-zero:
      one-rank NCCL group, K1 and K2 launches read around it; (b) `--mesh
      2x2 --counter device` on s0 in 4 rank processes joined by the three
      flags, sharing the card over gloo (K1, K2 and K3 launched on every
-     rank); (c) the 32-strain panel on `--mesh 1x2` (words mode, genome-
-     sharded); (d) `--shard-samples` over s0-s2 on 2 ranks. Each run's
-     files equal its one-device run's (phases 5, 8 and a one-process
-     cohort); wall seconds beside the card's name: one card shows the
-     paths correct, not their scaling. The rank processes block jax and
-     bronko_tpu too;
- 13. warm: N (default 1) more samples with each counter, in turns, with
+     rank; every rank logs the routed layout); (c) the 32-strain panel on
+     `--mesh 1x2` (words mode, genome-sharded); (d) `--shard-samples` over
+     s0-s2 on 2 ranks; (e) `--mesh 2x1` on s0 with the host counter on 2
+     ranks: the routed pass 1 saves its probe and the routed pass 2 walks
+     it (every rank logs routed and launches K1 and K2); (f) pass 1 of s0
+     on a 2x1 mesh through routed_tally and sharded_tally (B-split), in
+     turns, medians of 5, each rank's compute and exchange seconds. Each
+     run's files equal its one-device run's (phases 5, 8 and a
+     one-process cohort); wall seconds beside the card's name: one card
+     shows the paths correct, not their scaling. The rank processes block
+     jax and bronko_tpu too;
+ 13. entry: entry()'s map_batch on the card equals the same call on the
+     CPU (K1 and K2 launched); dryrun_multichip(4) on 4 ranks sharing the
+     card prints its summary line and its wall;
+ 14. warm: N (default 1) more samples with each counter, in turns, with
      their stage seconds;
- 14. the script's own wall time, the kernels line, the card's name and
+ 15. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
 """
 
@@ -95,7 +103,7 @@ from contextlib import contextmanager  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from bronko_tpu_torch import cli  # noqa: E402
+from bronko_tpu_torch import cli, entry  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
 from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.device_build import build_device_index_on_device  # noqa: E402
@@ -892,6 +900,77 @@ finally:
 """
 
 
+# a rank of the mesh phase's run (f): pass 1 of one sample on a 2x1 mesh
+# through the routed probe and the B-split one, in turns; prints the
+# medians of each one's wall, exchange and compute seconds, then its
+# launch counts
+RANK_PASS1 = """
+import argparse, json, statistics, sys, time
+sys.modules["jax"] = None
+sys.modules["bronko_tpu"] = None
+import numpy as np
+import torch
+from bronko_tpu_torch import cli
+from bronko_tpu_torch.call import engine
+from bronko_tpu_torch.index.layout import build_device_index
+from bronko_tpu_torch.index.store import load_index
+from bronko_tpu_torch.ops import cuda_lib
+from bronko_tpu_torch.config import setup_logging
+from bronko_tpu_torch.parallel import distributed, pipeline
+
+setup_logging(False, False)
+ap = argparse.ArgumentParser()
+ap.add_argument("db")
+ap.add_argument("fastq")
+ap.add_argument("--coordinator")
+ap.add_argument("--num-processes", type=int)
+ap.add_argument("--process-id", type=int)
+a = ap.parse_args()
+distributed.init_distributed(a.coordinator, a.num_processes, a.process_id)
+device = distributed.rank_device()
+cfg = cli.call_config(cli.build_parser().parse_args(
+    ["call", "-d", a.db, "-r", a.fastq, "-o", "unused", "--mesh", "2x1", "--counter", "host"]))
+index = load_index(a.db)
+dev = build_device_index(index, torch.device("cpu"))
+mapper = engine.ShardedMapper(index, cfg, dev, device)
+counted = engine._count_job([a.fastq], cfg, index.k, device)
+batches = mapper.place_batches(counted.kmers, counted.counts, cfg.batch_size)
+assert mapper._layout == "routed", mapper._layout
+mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+chunks, bounds = pipeline.route_split(mapper.sharded, 2)
+chunk = pipeline.upload_chunk(chunks, bounds, mapper.mesh.g, mapper.mesh.d, device)
+save = mapper.mode == "hist" and dev.fid_grouped
+
+
+def routed():
+    return pipeline.routed_tally(batches, chunk, mcfg, mapper.mode, mapper.mesh, save)[0]
+
+
+def bsplit():
+    return pipeline.sharded_tally(batches, mapper.shard, mcfg, mapper.mode, mapper.mesh)
+
+
+assert np.array_equal(routed(), bsplit())
+runs = {"routed": [], "bsplit": []}
+for i in range(5):
+    for name in ("routed", "bsplit") if i % 2 == 0 else ("bsplit", "routed"):
+        torch.cuda.synchronize()
+        x0, t0 = distributed.EXCHANGE_SECONDS, time.perf_counter()
+        (routed if name == "routed" else bsplit)()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name].append((wall, distributed.EXCHANGE_SECONDS - x0))
+rep = {name: {"wall": statistics.median(w for w, _ in v),
+              "exchange": statistics.median(e for _, e in v),
+              "compute": statistics.median(w - e for w, e in v)} for name, v in runs.items()}
+rep.update(kmers=int(counted.kmers.shape[0]), batches=len(batches),
+           slice=int(sum(km.shape[0] for km, _ in batches)), reps=5)
+print("PASS1 " + json.dumps(rep), flush=True)
+distributed.shutdown()
+print("LAUNCHES " + json.dumps(cuda_lib.LAUNCHES), flush=True)
+"""
+
+
 def _free_port() -> int:
     import socket
 
@@ -900,20 +979,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(n: int, argv: list[str], work: str, tag: str) -> tuple[list[dict], float]:
-    """`call argv` in n rank processes on this card, joined by the three
-    flags on localhost (n ranks on one card: gloo). Returns each rank's
-    launch counts (counted in the rank from 0) and the wall seconds; fails
-    the phase unless every rank exits 0, and kills every rank past
-    MESH_TIMEOUT."""
+def run_ranks(n: int, argv: list[str], work: str, tag: str, script: str = RANK_WRAPPER,
+              layouts: str | None = None) -> tuple[list[dict], float, list[str]]:
+    """`call argv` (or `script` with argv) in n rank processes on this
+    card, joined by the three flags on localhost (n ranks on one card:
+    gloo). Returns each rank's launch counts (counted in the rank from 0),
+    the wall seconds and each rank's output; fails the phase unless every
+    rank exits 0 (and, with `layouts`, logs that the mesh took them), and
+    kills every rank past MESH_TIMEOUT."""
     port = _free_port()
     logs = [os.path.join(work, f"mesh_{tag}.{r}.log") for r in range(n)]
     t0 = time.perf_counter()
     procs = []
+    head = ["call"] if script is RANK_WRAPPER else []
     for r in range(n):
         with open(logs[r], "w") as fh:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", RANK_WRAPPER, "call", *argv, "--coordinator",
+                [sys.executable, "-c", script, *head, *argv, "--coordinator",
                  f"127.0.0.1:{port}", "--num-processes", str(n), "--process-id", str(r)],
                 cwd=REPO, stdout=fh, stderr=subprocess.STDOUT))
     try:
@@ -927,7 +1009,7 @@ def run_ranks(n: int, argv: list[str], work: str, tag: str) -> tuple[list[dict],
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    launches = []
+    launches, texts = [], []
     for r, (p, log) in enumerate(zip(procs, logs)):
         with open(log) as fh:
             text = fh.read()
@@ -935,8 +1017,11 @@ def run_ranks(n: int, argv: list[str], work: str, tag: str) -> tuple[list[dict],
             fail("mesh", f"{tag}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
         if "backend gloo (ranks share a card)" not in text:
             fail("mesh", f"{tag}: rank {r} did not run gloo over the shared card")
+        if layouts is not None and f"mesh layouts used this run: {layouts}\n" not in text:
+            fail("mesh", f"{tag}: rank {r} did not log the layouts {layouts}")
         launches.append(json.loads(text.rsplit("LAUNCHES ", 1)[1].splitlines()[0]))
-    return launches, wall
+        texts.append(text)
+    return launches, wall, texts
 
 
 def phase_mesh(db: str, panel_db: str, fastqs: list[str], work: str, smi: str) -> dict:
@@ -973,18 +1058,18 @@ def phase_mesh(db: str, panel_db: str, fastqs: list[str], work: str, smi: str) -
             fail("mesh", f"{tag}: (rank, kernel) never launched: {missing}")
 
     out = os.path.join(work, "mesh_2x2")
-    launches_b, walls["b"] = run_ranks(
+    launches_b, walls["b"], _ = run_ranks(
         4, ["-d", db, "-r", fastq, "-o", out, "--pileup", "--mesh", "2x2",
-            "--counter", "device"], work, "2x2")
+            "--counter", "device"], work, "2x2", layouts="routed")
     check_ranks("(b)", launches_b, ("bucket_queries", "fold_table", "pack_windows"))
     if read_outputs(out) != read_outputs(os.path.join(work, "gpu")):
         fail("mesh", "(b) --mesh 2x2: files differ from the main phase's")
-    print(f"[mesh] (b) --mesh 2x2, 4 ranks sharing the card over gloo, --counter device: files "
-          f"equal the main phase's; launches by rank {launches_b}; wall {walls['b']:.4f}s, "
-          f"rank start-up included ({smi})", flush=True)
+    print(f"[mesh] (b) --mesh 2x2, 4 ranks sharing the card over gloo, --counter device: every "
+          f"rank took the routed layout; files equal the main phase's; launches by rank "
+          f"{launches_b}; wall {walls['b']:.4f}s, rank start-up included ({smi})", flush=True)
 
     out = os.path.join(work, "mesh_panel_1x2")
-    launches_c, walls["c"] = run_ranks(
+    launches_c, walls["c"], _ = run_ranks(
         2, ["-d", panel_db, "-r", fastq, "-o", out, "--pileup", "--mesh", "1x2"], work, "panel")
     check_ranks("(c)", launches_c, ("bucket_queries", "fold_table"))
     if read_outputs(out) != read_outputs(os.path.join(work, "panel_gpu")):
@@ -998,7 +1083,7 @@ def phase_mesh(db: str, panel_db: str, fastqs: list[str], work: str, smi: str) -
     if isinstance(res, int) or len(res) != len(fastqs):
         fail("mesh", f"(d) the one-process cohort returned {res}")
     out = os.path.join(work, "mesh_shard_samples")
-    launches_d, walls["d"] = run_ranks(
+    launches_d, walls["d"], _ = run_ranks(
         2, ["-d", db, "-r", *fastqs, "-o", out, "--pileup", "--shard-samples"], work, "shard")
     check_ranks("(d)", launches_d, ("bucket_queries", "fold_table"))
     if read_outputs(out) != read_outputs(single):
@@ -1007,10 +1092,70 @@ def phase_mesh(db: str, panel_db: str, fastqs: list[str], work: str, smi: str) -
           f"the overview equal the one-process cohort's; launches by rank {launches_d}; wall "
           f"{walls['d']:.4f}s against {walls['d single']:.4f}s in one process, rank start-up "
           f"included ({smi})", flush=True)
+
+    out = os.path.join(work, "mesh_2x1")
+    launches_e, walls["e"], _ = run_ranks(
+        2, ["-d", db, "-r", fastq, "-o", out, "--pileup", "--mesh", "2x1", "--counter", "host"],
+        work, "2x1", layouts="routed")
+    check_ranks("(e)", launches_e, ("bucket_queries", "fold_table"))
+    if read_outputs(out) != read_outputs(os.path.join(work, "gpu")):
+        fail("mesh", "(e) --mesh 2x1: files differ from the main phase's")
+    print(f"[mesh] (e) --mesh 2x1, 2 ranks sharing the card over gloo, host counter: every rank "
+          f"took the routed pass 1 with its saved probe and the routed pass 2; files equal the "
+          f"main phase's; launches by rank {launches_e}; wall {walls['e']:.4f}s, rank start-up "
+          f"included ({smi})", flush=True)
+
+    _, walls["f"], texts = run_ranks(2, [db, fastq], work, "pass1", script=RANK_PASS1)
+    for r, text in enumerate(texts):
+        rep = json.loads(text.rsplit("PASS1 ", 1)[1].splitlines()[0])
+        print(f"[mesh] (f) rank {r} of 2x1: pass 1 of {fastq} ({rep['kmers']} k-mers, "
+              f"{rep['batches']} batch(es), a B-split slice of {rep['slice']} k-mers), medians "
+              f"of {rep['reps']} in turns, seconds: routed (saved probe) wall "
+              f"{rep['routed']['wall']:.6f} = compute {rep['routed']['compute']:.6f} + exchange "
+              f"{rep['routed']['exchange']:.6f}; B-split wall {rep['bsplit']['wall']:.6f} = "
+              f"compute {rep['bsplit']['compute']:.6f} + exchange "
+              f"{rep['bsplit']['exchange']:.6f}; tallies equal ({smi})", flush=True)
     print(f"[mesh] wall seconds {json.dumps(walls)}: "
           f"one card shows the mesh paths correct, not their scaling ({smi})", flush=True)
     return {"1x1": launches_a, "2x2": launches_b, "panel 1x2": launches_c,
-            "shard-samples": launches_d}
+            "shard-samples": launches_d, "2x1": launches_e}
+
+
+def phase_entry(smi: str) -> dict:
+    """entry()'s map_batch on the card against the same call on the CPU
+    (BRONKO_PLATFORM=cpu: the plain versions), launch counts read around
+    the card's; then dryrun_multichip(4): 4 rank processes sharing the
+    card over gloo on a 2x2 mesh, which prints JAX's summary line."""
+    def on_card():
+        fn, args = entry.entry()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, args[0].device
+
+    (got, where), launches = drive(on_card)
+    if where.type != "cuda":
+        fail("entry", f"entry() put its inputs on {where}, not the card")
+    missing = [n for n in ("bucket_queries", "fold_table") if launches[n] == 0]
+    if missing:
+        fail("entry", f"kernels never launched by entry()'s function: {missing}")
+    os.environ["BRONKO_PLATFORM"] = "cpu"
+    try:
+        fn, args = entry.entry()
+        want = fn(*args)
+    finally:
+        os.environ["BRONKO_PLATFORM"] = "gpu"
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        fail("entry", "entry()'s pileup or tallies differ between the card and the CPU")
+    print(f"[entry] entry()'s map_batch on the card: pileup {tuple(got[0].shape)} and tallies "
+          f"(sum {int(got[1].sum())}) equal the CPU's; launches {launches}", flush=True)
+    t0 = time.perf_counter()
+    line = entry.dryrun_multichip(4)
+    wall = time.perf_counter() - t0
+    if "routed" not in line:
+        fail("entry", f"dryrun_multichip(4) took no routed layout: {line}")
+    print(f"[entry] dryrun_multichip(4), 4 ranks sharing the card over gloo: wall {wall:.4f}s, "
+          f"rank start-up included ({smi})", flush=True)
+    return launches
 
 
 def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
@@ -1115,6 +1260,7 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
                                         smi)
     mesh_launches = phase_mesh(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs, work,
                                smi)
+    entry_launches = phase_entry(smi)
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
 
     # each kernel's launches on its own path: K1 and K2 on the main path,
@@ -1123,7 +1269,7 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     launches["gather"] = rows["gather"]["launches"]
     print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
-          f"{mesh_launches}", flush=True)
+          f"{mesh_launches}; entry() {entry_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

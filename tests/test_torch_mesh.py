@@ -6,9 +6,11 @@ conftest.py) and against the port on one device.
 Three panels, one a histogram regime: 4 strains (the single int32 word),
 13 strains (the multi-word histogram), 5 strains with a poly-A stretch (a
 bucket of more than 255 postings: the flat tally). Worlds of 2 ranks run
-meshes 1x2 and 2x1, a world of 4 runs 2x2, each world once for the whole
-module, at two batch sizes: one batch a sample (B-split at D = 2) and two
-(batchwise at D = 2). The ranks block jax and bronko_tpu."""
+meshes 1x2 and 2x1, a world of 4 runs 2x2 and 4x1, each world once for
+the whole module, at two batch sizes: one batch a sample (routed at D > 1
+with a histogram, else B-split) and two (batchwise at D = 2, routed or
+B-split at D = 4). Each run takes the layout JAX's ShardedMapper takes
+for it. The ranks block jax and bronko_tpu."""
 
 import json
 import os
@@ -39,7 +41,7 @@ from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fa
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 PANELS = {"hist": (4, b""), "words": (13, b""), "flat": (5, b"A" * 300)}
-MESHES = {2: ("1x2", "2x1"), 4: ("2x2",)}
+MESHES = {2: ("1x2", "2x1"), 4: ("2x2", "4x1")}
 RANK_TIMEOUT = 300
 
 RANK = textwrap.dedent("""
@@ -248,11 +250,14 @@ def test_sharded_passes(worlds, name, mesh, layout):
     ranks = reports[f"pass_{name}_{mesh}_{layout}"]
     assert all(r["added"] == r["walk"] for r in ranks)
     assert sum(r["walk"] for r in ranks) == int(lanes[:, p["best"]].sum())
-    assert {tuple(r["path"]) for r in ranks} == {(name, "subindex")}
-    expect = "batchwise" if mesh.startswith("1x") or layout == "batchwise" else "bsplit"
-    assert {tuple(r["layouts"]) for r in ranks} == {(expect,)}
-    # the routed layout is not ported: where JAX routes, the port B-splits
-    assert jax_layouts <= {expect, "routed"}
+    # the layout JAX's ShardedMapper takes for the same batches; a routed
+    # pass 1 on a Dx1 mesh with the histogram word saves its probe
+    assert {tuple(r["layouts"]) for r in ranks} == {tuple(sorted(jax_layouts))}
+    routed = jax_layouts == {"routed"}
+    assert routed == (not mesh.startswith("1x") and name != "flat"
+                      and (layout == "bsplit" or mesh == "4x1"))
+    saved = routed and mesh.endswith("x1") and name == "hist"
+    assert {tuple(r["path"]) for r in ranks} == {(name, "saved" if saved else "subindex")}
 
 
 def outputs(out: str) -> dict[str, bytes]:
@@ -269,7 +274,7 @@ def test_call_matches_jax_and_one_device(worlds, name, mesh, layout):
     """`call --mesh --pileup` on a single-end sample and a pair of mates:
     rank 0's VCF, pileup TSV and overview equal bronko_tpu's run_call with
     the same mesh and the port's on one device, byte for byte; every rank
-    selected the same genome; the layouts are recorded."""
+    selected the same genome; the layouts equal JAX's run's."""
     tmp, panels, reports = worlds
     p = panels[name]
     batch = p["batch"][layout]
@@ -286,15 +291,17 @@ def test_call_matches_jax_and_one_device(worlds, name, mesh, layout):
     je.run_call(jax_config.CallConfig(output=jout, mesh=mesh, **kw), jindex,
                 jax_layout.build_device_index(jindex))
     assert got == outputs(jout)
+    jax_layouts = tuple(sorted(je.LAST_MESH_LAYOUTS))
     vcf = got[os.path.basename(p["fq"]).split(".")[0] + ".vcf"].decode()
     assert {"301", "701"} <= {f[1] for f in (ln.split("\t") for ln in vcf.splitlines()
                                              if ln and not ln.startswith("#")) if f[6] == "PASS"}
     ranks = reports[f"call_{name}_{mesh}_{layout}"]
     assert {tuple(r["best"]) for r in ranks} == {(p["best"], p["best"])}
     (layouts,) = {tuple(r["layouts"]) for r in ranks}
+    assert layouts == jax_layouts
     if mesh.startswith("1x"):
         assert layouts == ("batchwise",)
-    elif layout == "bsplit":  # every sample one batch
-        assert layouts == ("bsplit",)
-    else:  # the single-end sample in two batches; the mates' in any number
-        assert "batchwise" in layouts and set(layouts) <= {"batchwise", "bsplit"}
+    elif layout == "bsplit":  # every sample one batch: JAX routes it with a histogram
+        assert layouts == (("bsplit",) if name == "flat" else ("routed",))
+    elif mesh == "2x1" or mesh == "2x2":  # the single-end sample in two batches
+        assert "batchwise" in layouts

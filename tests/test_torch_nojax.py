@@ -141,7 +141,8 @@ def test_sources_import_no_jax():
     modules (consts, config, io, index, call) and native sources."""
     assert len(SOURCES) >= 25
     for sub in ("consts.py", "config.py", "io/native.py", "index/store.py", "call/noise.py",
-                "parallel/distributed.py", "parallel/mesh.py", "parallel/pipeline.py"):
+                "parallel/distributed.py", "parallel/mesh.py", "parallel/pipeline.py",
+                "entry.py"):
         assert os.path.join("bronko_tpu_torch", sub) in SOURCES, sub
     assert {s: f for s in SOURCES if (f := _source_faults(s))} == {}
 
