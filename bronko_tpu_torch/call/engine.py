@@ -31,6 +31,21 @@ sample is isolated: a failure is logged and the run goes on. Summaries,
 the overview and the alignment keep the input order. `process_sample` is
 the same pieces for one sample, in series.
 
+The streamed path (JAX engine.py:1059-1374): a lone sample, or a
+cohort's first, may count into pass 1 instead. The native counter then
+finalizes one key-range partition at a time (io/native.py:
+native_count_fastq_stream), and each partition is uploaded from
+page-locked memory and its pass 1 enqueued while the host sorts the
+next; one host copy brings the tallies and every partition's walk
+lengths back, and pass 2 walks the saved probe or, past PROBE_BYTES_CAP,
+the genome's sub-index. `_can_stream` is JAX's gate: BRONKO_STREAM,
+BRONKO_NO_STREAM and BRONKO_STREAM_FIRST force it; else the port's own
+calibration file (~/.cache/bronko_torch/stream_calib.json, an entry per
+platform) or, without one, a device round trip under 4 ms decides. The
+sample's path is (mode, 'streamed'); its `count` stage runs until the
+last partition's pass 1 is enqueued, `h2d` is 0 and `pass1` is the tail
+up to the tallies on the host.
+
 Batching cannot change a result: tallies are sums, the pileup sums and
 maxima. Neither can the pipeline: each sample's device part runs on the
 main thread in input order, and its writers on one thread in that order.
@@ -45,6 +60,7 @@ gather to every rank in input order for rank 0's overview.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
@@ -61,7 +77,7 @@ from bronko_tpu_torch.call.outputs import (
     SampleSummary, write_alignments, write_overview, write_pileup, write_vcf,
 )
 from bronko_tpu_torch.call.variants import CallStats, VCFRecord, call_variants_for_seq
-from bronko_tpu_torch.config import CallConfig
+from bronko_tpu_torch.config import CallConfig, platform
 from bronko_tpu_torch.consts import KMER_COUNT_CAP
 from bronko_tpu_torch.index.layout import DeviceIndex, load_subindex
 from bronko_tpu_torch.index.model import BronkoIndex
@@ -424,19 +440,23 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
                      counted.seconds)
 
 
+def probe_bytes_per_query(dev: DeviceIndex) -> int | None:
+    """Bytes of the saved probe a (k-mer, bucket) query holds: an int32
+    start and its histogram words; None without a histogram."""
+    if dev.hist is not None:
+        return 4 + dev.hist.element_size()
+    if dev.hist_words is not None:
+        return 4 + 8 * dev.hist_words.shape[1]
+    return None
+
+
 def saves_probe(dev: DeviceIndex, n_kmers: int, J: int) -> bool:
     """Whether pass 1 saves its probe for pass 2 (JAX engine.py:790-800):
     a histogram exists, postings are grouped by genome within a bucket,
-    and the probe — an int32 start and the histogram words for each of
-    the sample's n_kmers x J queries (the port pads no batch) — stays
-    under PROBE_BYTES_CAP."""
-    if dev.hist is not None:
-        per_q = 4 + dev.hist.element_size()
-    elif dev.hist_words is not None:
-        per_q = 4 + 8 * dev.hist_words.shape[1]
-    else:
-        return False
-    return dev.fid_grouped and n_kmers * J * per_q < PROBE_BYTES_CAP
+    and the probe of the sample's n_kmers x J queries (the port pads no
+    batch) stays under PROBE_BYTES_CAP."""
+    per_q = probe_bytes_per_query(dev)
+    return per_q is not None and dev.fid_grouped and n_kmers * J * per_q < PROBE_BYTES_CAP
 
 
 @dataclass
@@ -472,6 +492,299 @@ def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Te
         return pileup_from_subindex(batches, dev.subindex(best), walk, mcfg, dev.g_total_len)
     return pileup_from_saved(batches, p1.saved, walk, dev.pass2_postings(), best, mcfg,
                              dev.g_total_len, int(dev.file_bases[best]))
+
+
+# --- the streamed single-sample path (JAX engine.py:1059-1374) ---------------
+
+def _env_flag(name: str) -> bool:
+    """Truthiness of an env toggle: '', '0', 'false', 'no' and 'off' are
+    off (a presence check would read BRONKO_X=0 as on)."""
+    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def _platform_of(device: torch.device) -> str:
+    """config.platform()'s name for `device`: 'gpu' for a CUDA device, else 'cpu'."""
+    return "gpu" if device.type == "cuda" else "cpu"
+
+
+def _platform_device() -> torch.device:
+    """The device BRONKO_PLATFORM names (the CLI's, without a rank)."""
+    return torch.device("cpu") if platform() == "cpu" else torch.device("cuda")
+
+
+# one round trip to a device, by device type, measured once a process
+_DISPATCH_LAT: dict[str, float] = {}
+
+
+def _dispatch_latency_s(device: torch.device) -> float:
+    """One round trip to `device`: a tiny op, then a synchronize on a CUDA
+    device; the second of two is timed (the first pays lazy set-up).
+    Measured once a process for each device type. A probe that raises
+    reads 1.0 s: a failed probe must not turn streaming on (JAX
+    engine.py:1237-1258)."""
+    if device.type not in _DISPATCH_LAT:
+        try:
+            x = torch.zeros(8, dtype=torch.int32, device=device)
+            for _ in range(2):
+                t0 = time.perf_counter()
+                x = x + 1
+                _sync(device)
+                took = time.perf_counter() - t0
+            _DISPATCH_LAT[device.type] = took
+        except Exception:  # noqa: BLE001 — no such device, a CUDA error
+            _DISPATCH_LAT[device.type] = 1.0
+    return _DISPATCH_LAT[device.type]
+
+
+# the port's own calibration file; JAX's (~/.cache/bronko_jax) holds a TPU's
+_STREAM_CALIB_PATH = os.path.join(
+    os.path.expanduser("~"), ".cache", "bronko_torch", "stream_calib.json")
+
+
+def _load_stream_calib(device: torch.device | None = None) -> dict | None:
+    """The calibration entry of `device`'s platform (default: BRONKO_PLATFORM's):
+    measured classic and streamed single-sample wall seconds and the round
+    trip at the time; None when the file is absent, corrupt or has no valid
+    entry (JAX engine.py:1264-1282)."""
+    try:
+        with open(_STREAM_CALIB_PATH) as fh:
+            e = json.load(fh).get(_platform_of(device or _platform_device()))
+        if (isinstance(e, dict) and float(e["classic_s"]) > 0
+                and float(e["streamed_s"]) > 0 and float(e["dispatch_s"]) >= 0):
+            return e
+    except Exception:  # noqa: BLE001 — absent or corrupt: no calibration
+        pass
+    return None
+
+
+def save_stream_calibration(classic_s: float, streamed_s: float,
+                            device: torch.device | None = None) -> dict:
+    """Record a measured classic-vs-streamed single-sample pair for
+    `device`'s platform (default: BRONKO_PLATFORM's), with the round trip
+    now, merged into the file so another platform's entry stays. The gate
+    trusts the entry only while the live round trip stays in its class
+    (JAX engine.py:1285-1321)."""
+    device = device or _platform_device()
+    entry = {
+        "classic_s": round(float(classic_s), 4),
+        "streamed_s": round(float(streamed_s), 4),
+        "dispatch_s": round(_dispatch_latency_s(device), 5),
+        "ts": time.time(),
+    }
+    try:
+        os.makedirs(os.path.dirname(_STREAM_CALIB_PATH), exist_ok=True)
+        try:
+            with open(_STREAM_CALIB_PATH) as fh:
+                d = json.load(fh)
+            if not isinstance(d, dict):
+                d = {}
+        except Exception:  # noqa: BLE001
+            d = {}
+        d[_platform_of(device)] = entry
+        tmp = _STREAM_CALIB_PATH + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(d, fh)
+        os.replace(tmp, _STREAM_CALIB_PATH)
+    except Exception as e:  # noqa: BLE001 — a read-only home directory
+        log.warning("could not persist stream calibration: %s", e)
+    return entry
+
+
+def _can_stream(cfg: CallConfig, dev: DeviceIndex, mapper, explicit: bool = False,
+                device: torch.device | None = None) -> bool:
+    """Whether a sample takes the streamed path, in JAX's order
+    (engine.py:1324-1374): a mesh, --keep-kmer-info and the device counter
+    keep it classic; so do BRONKO_NO_STREAM and BRONKO_STREAM=0; so do an
+    index without a histogram or with postings not grouped by genome, and
+    a missing native library. Then an explicit opt-in (BRONKO_STREAM=1,
+    or `explicit`: BRONKO_STREAM_FIRST=1's) streams; else a calibration
+    whose round trip is in the live one's class decides (both under 4 ms,
+    or within 2.5x of each other); else the live round trip does (under
+    4 ms streams). `device` (default dev.device) is probed. The decision
+    and its source are logged."""
+    if mapper is not None or cfg.keep_kmer_counts or cfg.counter == "device":
+        return False
+    if _env_flag("BRONKO_NO_STREAM"):
+        return False
+    stream_env = os.environ.get("BRONKO_STREAM", "").strip().lower()
+    if stream_env in ("0", "false", "no", "off"):
+        return False
+    if (dev.hist is None and dev.hist_words is None) or not dev.fid_grouped:
+        return False
+    try:
+        native_lib()
+    except Exception:  # noqa: BLE001 — the library did not build or load
+        return False
+    if explicit or stream_env in ("1", "true", "yes", "on"):
+        return True
+    device = dev.device if device is None else device
+    lat = _dispatch_latency_s(device)
+    calib = _load_stream_calib(device)
+    if calib is not None:
+        d0 = float(calib["dispatch_s"])
+        same_epoch = ((d0 < 0.004 and lat < 0.004)
+                      or (d0 > 0 and lat > 0 and 0.4 <= d0 / lat <= 2.5))
+        if same_epoch:
+            win = float(calib["streamed_s"]) < float(calib["classic_s"])
+            log.info(
+                "stream gate: calibrated -> %s (classic %.3fs vs streamed "
+                "%.3fs; dispatch now %.1f ms, calibrated at %.1f ms)",
+                "streamed" if win else "classic", calib["classic_s"],
+                calib["streamed_s"], lat * 1e3, d0 * 1e3)
+            return win
+        log.info("stream gate: calibration stale (dispatch %.1f ms vs "
+                 "calibrated %.1f ms); falling back to latency proxy",
+                 lat * 1e3, d0 * 1e3)
+    decision = lat < 0.004
+    log.info("stream gate: latency proxy -> %s (dispatch %.1f ms)",
+             "streamed" if decision else "classic", lat * 1e3)
+    return decision
+
+
+def _streams_first(cfg: CallConfig, dev: DeviceIndex, mapper, n_jobs: int) -> bool:
+    """Whether the first of `n_jobs` samples streams (JAX
+    engine.py:1512-1575): a lone sample when the gate says so; a cohort's
+    first when BRONKO_STREAM_FIRST=1 (an explicit opt-in) or, with the
+    variable unset, when the gate says so; BRONKO_STREAM_FIRST=0 turns
+    it off."""
+    if n_jobs < 1:
+        return False
+    if n_jobs > 1 and os.environ.get("BRONKO_STREAM_FIRST", "").strip():
+        return _env_flag("BRONKO_STREAM_FIRST") and _can_stream(cfg, dev, mapper, explicit=True)
+    return _can_stream(cfg, dev, mapper)
+
+
+def _upload_async(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
+                  device: torch.device):
+    """to_batches through page-locked host memory: on a CUDA device both
+    copies are enqueued on the current stream and the host goes on at
+    once (a copy from pageable memory waits for the card); on the CPU,
+    to_batches."""
+    if device.type != "cuda":
+        return to_batches(kmers, counts, batch_size, device)
+    km = torch.empty(kmers.shape[0], dtype=torch.int64, pin_memory=True)
+    ct = torch.empty(kmers.shape[0], dtype=torch.int32, pin_memory=True)
+    km.numpy()[:] = kmers.view(np.int64)
+    ct.numpy()[:] = counts
+    km, ct = km.to(device, non_blocking=True), ct.to(device, non_blocking=True)
+    return list(zip(km.split(batch_size), ct.split(batch_size)))
+
+
+@dataclass
+class PendingStream:
+    """A streamed sample whose pass 1 is enqueued for every partition:
+    the device's tallies, and each partition's batches, walk lengths and
+    saved probe (None past PROBE_BYTES_CAP)."""
+    tallies: torch.Tensor      # (G, 3) int32, every partition's, on the device
+    parts: list                # [(batches, lanes (nb, G) int64 on the device, saved | None)]
+    mcfg: object
+    n_kmers: int
+    cstats: CountStats
+    t_start: float             # the count began
+    t_enqueued: float          # the last partition's pass 1 was enqueued
+
+    @property
+    def seconds(self) -> dict[str, float]:
+        """The stages before resolve(): the count, with every partition's
+        upload and pass-1 dispatch inside it, so h2d is 0."""
+        return {"count": self.t_enqueued - self.t_start, "h2d": 0.0}
+
+    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
+        """Tallies and every partition's walk lengths in one host copy, the
+        genome selection, then pass 2: saved partitions from their probe
+        (pileup_from_saved), the others through the genome's sub-index
+        (pileup_from_subindex) with the exact walk lengths of their own
+        pass 1. Two pileups merge plane by plane: depth max, counts add
+        (JAX engine.py:1077-1134)."""
+        G = dev.num_genomes
+        host = torch.cat([self.tallies.to(torch.int64).reshape(-1)]
+                         + [lanes.reshape(-1) for _, lanes, _ in self.parts]).cpu().numpy()
+        tallies = host[:3 * G].reshape(G, 3)
+        walks = np.split(host[3 * G:].reshape(-1, G),
+                         np.cumsum([len(b) for b, _, _ in self.parts])[:-1])
+        log.info("Tallied %d kmers in %.2fs (streamed)", self.n_kmers,
+                 time.perf_counter() - self.t_start)
+        best, triple = _select_and_log(tallies, index, dev, self.cstats)
+        t = [self.t_enqueued, time.perf_counter()]
+
+        groups = {True: ([], [], []), False: ([], [], [])}  # saved: batches, probe, walk
+        for (batches, _, saved), walk in zip(self.parts, walks):
+            b, probe, w = groups[saved is not None]
+            b += batches
+            probe += saved or []
+            w += walk[:, best].tolist()
+        pileups = []
+        if groups[True][0]:
+            b, probe, w = groups[True]
+            pileups.append(pileup_from_saved(b, probe, w, dev.pass2_postings(), best,
+                                             self.mcfg, dev.g_total_len,
+                                             int(dev.file_bases[best])))
+        if groups[False][0]:
+            b, _, w = groups[False]
+            pileups.append(pileup_from_subindex(b, dev.subindex(best), w, self.mcfg,
+                                                dev.g_total_len))
+        if len(pileups) == 2:
+            a, b = pileups
+            pileups = [torch.cat([torch.maximum(a[:2], b[:2]), a[2:] + b[2:]])]
+        pileup_t = pileups[0] if pileups else torch.zeros(
+            (4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
+        _sync(dev.device)
+        log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
+        t.append(time.perf_counter())
+        pileup = pileup_t.cpu().numpy()
+        t.append(time.perf_counter())
+        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"),
+                      dict(pass1=t[1] - t[0], pass2=t[2] - t[1], d2h=t[3] - t[2]))
+
+
+def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
+                  threads: int) -> PendingStream:
+    """Streamed count -> tally (JAX engine.py:1137-1208): the native counter
+    finalizes one key-range partition at a time; each partition is
+    uploaded, cut into batches of cfg.batch_size and its pass 1 enqueued
+    on the device while the host sorts the next. No host sync happens
+    here: resolve() makes the sample's one. Partitions cover disjoint key
+    ranges and tallies are sums, so the result is the classic path's.
+    While the probe bytes of the partitions so far stay within
+    PROBE_BYTES_CAP a partition saves its probe (tally_save); past it, it
+    tallies without (tally) and pass 2 re-probes the sub-index."""
+    t0 = time.perf_counter()
+    device = dev.device
+    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+    J = len(mcfg.positions)
+    per_q = probe_bytes_per_query(dev)
+    acc = torch.zeros((dev.num_genomes, 3), dtype=torch.int32, device=device)
+    parts = []
+    totals = dict.fromkeys((f.name for f in fields(CountStats)), 0)
+    n_kmers = saved_bytes = 0
+    for kmers, counts, stats in native.native_count_fastq_stream(
+            paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads):
+        if stats is not None:
+            for f in totals:
+                totals[f] += stats[f]
+        if kmers.shape[0] == 0:
+            continue
+        n_kmers += kmers.shape[0]
+        batches = _upload_async(kmers, counts, cfg.batch_size, device)
+        saved_bytes += kmers.shape[0] * J * per_q
+        if saved_bytes <= PROBE_BYTES_CAP:
+            tallies, lanes, saved = tally_save(batches, dev, mcfg)
+        else:
+            (tallies, lanes), saved = tally(batches, dev, mcfg, dev.tally_mode()), None
+        acc += tallies
+        parts.append((batches, lanes, saved))
+    t1 = time.perf_counter()
+    cstats = CountStats(**totals)
+    log.info("%d reads counted from %s (streamed)", cstats.total_reads, paths[0])
+    log.info(
+        "%d unique kmers above %d count, %d total unique kmers, "
+        "%d total kmers (~%d basepairs); dispatched in %.2fs",
+        cstats.unique_counted_kmers, cfg.min_kmers, cstats.unique_kmers,
+        cstats.total_kmers, cstats.total_kmers * index.k, t1 - t0)
+    log.info("Streamed %d partition(s), %d with a saved probe", len(parts),
+             sum(saved is not None for *_, saved in parts))
+    log_memory_usage("Finished counting kmers", device)
+    return PendingStream(acc, parts, mcfg, n_kmers, cstats, t0, t1)
 
 
 class ShardedMapper:
@@ -810,9 +1123,12 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
     input order: the count workers and the caller thread issue none."""
     workers = _count_workers(len(jobs))
     # the ranks of one host share its cores
-    threads = max(1, cfg.threads // distributed.local_world_size() // workers)
+    host_threads = max(1, cfg.threads // distributed.local_world_size())
+    threads = max(1, host_threads // workers)
     upload = (mapper is None
               and len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions) > 0)
+    # a lone sample, or a cohort's first, may stream its count into pass 1
+    stream_first = upload and _streams_first(cfg, dev, mapper, len(jobs))
     budget = None
     if cfg.counter in ("auto", "host") and native.get_lib() is not None:
         budget = _InflateBudget()
@@ -840,7 +1156,25 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
                 futures.append(pool.submit(_count_job, job, cfg, index.k, device,
                                            threads, texts, upload))
 
-        for ji, job in enumerate(jobs):
+        if stream_first:
+            futures.append(None)  # the first job counts here, not on a worker
+            job = jobs[0]
+            label = job[0] if len(job) == 1 else f"{job[0]}, {job[1]}"
+            log.info("Processing %s (streamed)", label)
+            try:
+                pending = _stream_pass1(job, index, dev, cfg, host_threads)
+                submit_upto(1 + workers)
+                mapped = pending.resolve(index, dev)
+                call_futs.append((label, job[0], job_ids[0], call_pool.submit(
+                    _call_one, job[0], index, dev, cfg, mapped,
+                    pending.cstats.total_reads, pending.seconds)))
+            except Exception:  # noqa: BLE001 — per-sample isolation
+                log.exception("Sample %s failed; continuing with remaining samples", label)
+                failures.append(job[0])
+                failure_ids.append(job_ids[0])
+
+        for ji in range(int(stream_first), len(jobs)):
+            job = jobs[ji]
             submit_upto(ji + 1 + workers)
             # release the future: it would hold the sample's k-mers and
             # device batches for the rest of the run

@@ -11,6 +11,9 @@ implementations when it is unavailable.
 (`InflatedText`) that `native_count_fastq(..., text=)` then counts: the
 engine's inflate-ahead worker overlaps one sample's single-threaded inflate
 with another's multi-threaded parse and count.
+
+`native_count_fastq_stream` yields a sample's counted k-mers one key-range
+partition at a time, for the engine's streamed single-sample path.
 """
 
 from __future__ import annotations
@@ -90,6 +93,9 @@ def get_lib():
         lib.bronko_counter_finalize.restype = ctypes.c_int64
         lib.bronko_counter_finalize.argtypes = [
             ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32]
+        lib.bronko_counter_finalize_part.restype = ctypes.c_int64
+        lib.bronko_counter_finalize_part.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
         lib.bronko_counter_extract.restype = None
         lib.bronko_counter_extract.argtypes = [
             ctypes.c_void_p,
@@ -197,6 +203,70 @@ def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
         return kmers, counts.astype(np.int64), stats
     finally:
         lib.bronko_counter_destroy(h)
+
+
+NATIVE_COUNT_PARTS = 4  # key-range partitions of the streamed finalize
+# (a power of two in [1, 8]; JAX io/native.py:209)
+
+
+def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
+                              count_cap: int, threads: int = 4):
+    """Count each file, then yield the sorted unique (kmers u64, counts
+    int64, stats or None) of each of its NATIVE_COUNT_PARTS key-range
+    partitions as it finalizes: the caller sends partition p to the device
+    while the host sorts partition p+1. Partitions in order are
+    native_count_fastq's output. Each path has its own counter (paired
+    mates are separate k-mer streams); stats come with a path's last
+    partition. Mate i+1 is read and inflated on a helper thread while mate
+    i counts, so at most two inflated buffers are live; a prefetch still
+    in flight when a count fails or the consumer abandons the generator
+    is closed (JAX io/native.py:215-284)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lib = get_lib()
+    assert lib is not None
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # path 0 inflates inside its own count; path i+1 is submitted just
+        # before path i counts
+        next_tf = pool.submit(native_read_inflate, paths[1]) if len(paths) > 1 else None
+        try:
+            for i, path in enumerate(paths):
+                text = None
+                if i > 0:
+                    text = next_tf.result()
+                    next_tf = (pool.submit(native_read_inflate, paths[i + 1])
+                               if i + 1 < len(paths) else None)
+                h = lib.bronko_counter_create(k, max(1, threads))
+                if not h:
+                    raise ValueError(f"k={k} outside the counter's supported range")
+                try:
+                    _count_into(lib, h, path, text)
+                    unique_counted = 0
+                    for part in range(NATIVE_COUNT_PARTS):
+                        n = int(lib.bronko_counter_finalize_part(
+                            h, part, NATIVE_COUNT_PARTS, min_count, count_cap))
+                        kmers = np.empty(n, np.uint64)
+                        counts = np.empty(n, np.uint32)
+                        if n:
+                            lib.bronko_counter_extract(h, kmers, counts)
+                        unique_counted += n
+                        stats = None
+                        if part == NATIVE_COUNT_PARTS - 1:
+                            stats = dict(
+                                total_reads=int(lib.bronko_counter_total_reads(h)),
+                                total_kmers=int(lib.bronko_counter_total_kmers(h)),
+                                unique_kmers=int(lib.bronko_counter_unique(h)),
+                                unique_counted_kmers=unique_counted,
+                            )
+                        yield kmers, counts.astype(np.int64), stats
+                finally:
+                    lib.bronko_counter_destroy(h)
+        finally:
+            if next_tf is not None:
+                try:
+                    next_tf.result().close()
+                except Exception:  # noqa: BLE001 — the prefetch itself failed
+                    pass
 
 
 def native_read_fastq_chunks(path: str, chunk_reads: int, max_len: int = 512):

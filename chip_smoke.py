@@ -76,7 +76,18 @@ Phases, one line each; any failure exits non-zero:
      card prints its summary line and its wall;
  14. warm: N (default 1) more samples with each counter, in turns, with
      their stage seconds;
- 15. the script's own wall time, the kernels line, the card's name and
+ 15. stream: the streamed single-sample path (every phase before it runs
+     with BRONKO_NO_STREAM=1, the classic path): s0 with BRONKO_STREAM=1
+     and with BRONKO_NO_STREAM=1, equal to each other and to phase 6's
+     CPU run (tallies, genome, int32 pileup, files), K1 launched for
+     every non-empty partition and K2 for every saved one; the 32-strain
+     panel streamed (words), equal to phase 8's card run; s0 with
+     PROBE_BYTES_CAP at its first partition's bytes, so the others
+     re-probe the sub-index; s0-s2 with BRONKO_STREAM_FIRST=1 against
+     their classic cohort; the auto gate's decision and round trip on the
+     card; warm totals of both paths in turns, medians (q1, q3) of
+     max(N, 9) each;
+ 16. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
 """
 
@@ -105,10 +116,12 @@ import torch  # noqa: E402
 
 from bronko_tpu_torch import cli, entry  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
+from bronko_tpu_torch.consts import KMER_COUNT_CAP  # noqa: E402
 from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.device_build import build_device_index_on_device  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.index.store import load_index  # noqa: E402
+from bronko_tpu_torch.io import native  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops import map as tmap  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
@@ -146,6 +159,8 @@ PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
 PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
 PANEL_REPS = 5
 MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
+STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
+STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -531,10 +546,11 @@ def _timed(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
-def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str) -> None:
+def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str):
     """The 32-strain panel through `build` and `call` on the card (the
     saved-probe words path), held against the CPU; then the flat tally and
-    the sub-index pass 2 on the same device batches, held against it."""
+    the sub-index pass 2 on the same device batches, held against it.
+    Returns the card's call."""
     gpu = torch.device("cuda", 0)
     t0 = time.perf_counter()
     paths = make_panel(synth0)
@@ -631,6 +647,7 @@ def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str
           f"{med['flat'][0]:.6f} + {med['flat'][1]:.6f}s; peak device memory of the flat run "
           f"{flat_peak} bytes; index {index_bytes} bytes on the card ({dev.device_bytes()} with "
           f"the genome ids and the sub-index), host layout {layout_s:.2f}s ({smi})", flush=True)
+    return res
 
 
 @contextmanager
@@ -1180,6 +1197,146 @@ def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
                   f"total {total} -> {results[0].reads / med:.0f} reads/s ({smi})", flush=True)
 
 
+@contextmanager
+def stream_env(**env: str):
+    """The three stream variables as `env` gives them (the others unset) for
+    the duration; their values before come back after."""
+    old = {v: os.environ.get(v) for v in STREAM_VARS}
+    for v in STREAM_VARS:
+        os.environ.pop(v, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for v, x in old.items():
+            if x is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = x
+
+
+def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, panel_res,
+                 warm: int, smi: str) -> dict:
+    """The streamed single-sample path on the card (host counter): s0
+    forced streamed and forced classic, both equal to each other and to
+    the main phase's CPU run `ref`; the 32-strain panel streamed, equal to
+    the panel phase's card run `panel_res`; s0 with the probe cap at its
+    first partition's bytes (the other partitions re-probe the sub-index);
+    a 3-sample cohort with BRONKO_STREAM_FIRST=1 against its classic run;
+    the auto gate's decision and round trip; warm totals of both paths in
+    turns. Returns the streamed s0 run's launch counts."""
+    fastq = fastqs[0]
+    cfg = call_args(db, fastq, work, "host")
+    parts = [p[0].shape[0] for p in native.native_count_fastq_stream(
+        [fastq], cfg.kmer, cfg.min_kmers, KMER_COUNT_CAP, threads=cfg.threads)]
+    nonempty = [n for n in parts if n]
+    batches = sum(-(-n // cfg.batch_size) for n in nonempty)
+
+    def same_as(res, want, out: str, want_out: str, what: str) -> None:
+        if res.best != want.best or not np.array_equal(res.tallies, want.tallies):
+            fail("stream", f"{what}: tallies or the selected genome differ")
+        if not np.array_equal(res.pileup, want.pileup):
+            fail("stream", f"{what}: pileups differ")
+        if read_outputs(out) != read_outputs(want_out):
+            fail("stream", f"{what}: output files differ")
+
+    def kernels_ran(launches: dict, k1: int, k2: int, what: str) -> None:
+        if launches["bucket_queries"] < k1 or launches["fold_table"] < k2:
+            fail("stream", f"{what}: launches {launches}, expected K1 >= {k1} and K2 >= {k2}")
+
+    out_s, out_c = os.path.join(work, "stream_s0"), os.path.join(work, "stream_s0_classic")
+    with stream_env(BRONKO_STREAM="1"):
+        res_s, launches = drive(lambda: run_call(db, fastq, out_s, None, "host"))
+    with stream_env(BRONKO_NO_STREAM="1"):
+        res_c = run_call(db, fastq, out_c, None, "host")
+    if (res_s.path, res_c.path) != (("hist", "streamed"), ("hist", "saved")):
+        fail("stream", f"paths {res_s.path} (BRONKO_STREAM=1), {res_c.path} (BRONKO_NO_STREAM=1)")
+    kernels_ran(launches, len(nonempty), len(nonempty), "s0 streamed")
+    same_as(res_s, res_c, out_s, out_c, "s0 streamed against classic")
+    same_as(res_s, ref, out_s, os.path.join(work, "cpu"), "s0 streamed against the CPU run")
+    print(f"[stream] s0 streamed in {len(parts)} partitions of {parts} k-mers ({batches} "
+          f"batch(es)): launches {launches}; tallies, genome {res_s.best}, pileup and "
+          f"{', '.join(read_outputs(out_s))} equal the classic card run and the CPU run; "
+          f"{stage_line('stream s0', res_s, smi)}", flush=True)
+
+    out_p = os.path.join(work, "stream_panel")
+    with stream_env(BRONKO_STREAM="1"):
+        res_p, launches_p = drive(lambda: run_call(panel_db, fastq, out_p, None, "host"))
+    if res_p.path != ("words", "streamed"):
+        fail("stream", f"the panel took {res_p.path}, not the streamed words path")
+    kernels_ran(launches_p, len(nonempty), len(nonempty), "the panel streamed")
+    same_as(res_p, panel_res, out_p, os.path.join(work, "panel_gpu"), "the panel streamed")
+    print(f"[stream] 32-strain panel streamed (words): launches {launches_p}; equal to the "
+          f"panel phase's card run; {stage_line('stream panel', res_p, smi)}", flush=True)
+
+    dev = build_device_index(load_index(db), torch.device("cpu"))
+    J = len(dev.map_config(cfg.n_fixed, cfg.use_full_kmer).positions)
+    cap = nonempty[0] * J * engine.probe_bytes_per_query(dev)
+    out_m = os.path.join(work, "stream_capped")
+    full_cap, engine.PROBE_BYTES_CAP = engine.PROBE_BYTES_CAP, cap
+    try:
+        with stream_env(BRONKO_STREAM="1"):
+            res_m, launches_m = drive(lambda: run_call(db, fastq, out_m, None, "host"))
+    finally:
+        engine.PROBE_BYTES_CAP = full_cap
+    if res_m.path != ("hist", "streamed"):
+        fail("stream", f"the capped run took {res_m.path}")
+    # pass 1 probes every partition; pass 2 probes the sub-index again for
+    # each partition past the cap
+    kernels_ran(launches_m, 2 * len(nonempty) - 1, 2, "s0 with the probe cap")
+    same_as(res_m, res_c, out_m, out_c, "s0 with the probe cap")
+    print(f"[stream] s0 with PROBE_BYTES_CAP = {cap} bytes (partition 0 saves its probe, "
+          f"{len(nonempty) - 1} re-probe the sub-index): launches {launches_m}; equal to the "
+          f"classic run; {stage_line('stream capped', res_m, smi)}", flush=True)
+
+    outs = {"first": os.path.join(work, "stream_cohort"),
+            "classic": os.path.join(work, "stream_cohort_classic")}
+    with stream_env(BRONKO_STREAM_FIRST="1"):
+        (cohort, wall_f), launches_f = drive(lambda: run_cohort(db, fastqs, outs["first"]))
+    with stream_env(BRONKO_NO_STREAM="1"):
+        classic, wall_c = run_cohort(db, fastqs, outs["classic"])
+    if not isinstance(cohort, list) or not isinstance(classic, list):
+        fail("stream", f"a cohort run failed: exit {cohort}, {classic}")
+    paths = [r.path for r in cohort]
+    if paths != [("hist", "streamed")] + [("hist", "saved")] * (len(fastqs) - 1):
+        fail("stream", f"the cohort's paths with BRONKO_STREAM_FIRST=1: {paths}")
+    if read_outputs(outs["first"]) != read_outputs(outs["classic"]):
+        fail("stream", "the cohort with its first sample streamed writes other files")
+    print(f"[stream] {len(fastqs)}-sample cohort with BRONKO_STREAM_FIRST=1: paths {paths}, "
+          f"launches {launches_f}, files equal the classic cohort's; wall {wall_f:.4f}s "
+          f"(classic {wall_c:.4f}s; {smi})", flush=True)
+
+    card_dev = build_device_index(load_index(db), CARD)
+    with stream_env():
+        decision = engine._can_stream(cfg, card_dev, None)
+        lat = engine._dispatch_latency_s(CARD)
+        calib = engine._load_stream_calib(CARD)
+        res_auto = run_call(db, fastq, os.path.join(work, "stream_auto"), None, "host")
+    print(f"[stream] auto gate on the card: {'streamed' if decision else 'classic'} (round trip "
+          f"{lat * 1e3:.4f} ms, by {'the calibration' if calib else 'the latency proxy'}); "
+          f"a lone sample with no variable set took {res_auto.path} ({smi})", flush=True)
+
+    n = max(warm, STREAM_WARM)
+    runs = {"streamed": [], "classic": []}
+    for i in range(n):
+        for name in ("streamed", "classic") if i % 2 == 0 else ("classic", "streamed"):
+            env = {"BRONKO_STREAM": "1"} if name == "streamed" else {"BRONKO_NO_STREAM": "1"}
+            with stream_env(**env):
+                runs[name].append(run_call(db, fastq, os.path.join(work, f"stream_warm_{name}"),
+                                           None, "host"))
+    med = {}
+    for name, results in runs.items():
+        q1, med[name], q3 = statistics.quantiles([sum(r.seconds.values()) for r in results], n=4)
+        stages = ", ".join(f"{s} {statistics.median(r.seconds[s] for r in results):.6f}"
+                           for s in engine.STAGES)
+        print(f"[stream warm {name}] median (q1, q3) of {n}, in turns: total {med[name]:.6f} "
+              f"({q1:.6f}, {q3:.6f}) -> {results[0].reads / med[name]:.0f} reads/s; stage "
+              f"medians {stages} ({smi})", flush=True)
+    print(f"[stream] warm median streamed / classic = {med['streamed'] / med['classic']:.4f} "
+          f"({smi})", flush=True)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--warm", type=int, default=1,
@@ -1220,6 +1377,9 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     os.makedirs(work)
     db = os.path.join(work, "panel")
     os.environ["BRONKO_PLATFORM"] = "gpu"
+    # every phase but the stream phase takes the classic path, as before
+    # the streamed one existed; the stream phase sets the variables itself
+    os.environ["BRONKO_NO_STREAM"] = "1"
     if cli.main(["build", "-g", *genome_paths, "-o", db]) != 0:
         fail("main", "build failed")
 
@@ -1253,7 +1413,7 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
           f"{res.best} and the {tuple(res.pileup.shape)} pileup equal the CPU run; "
           f"CPU {stage_line('cpu', ref, 'host CPU')}", flush=True)
     count_launches = phase_count(db + ".bkdb", fastq, work, res, smi)
-    phase_panel(genome_paths[0], fastq, planted, work, smi)
+    panel_res = phase_panel(genome_paths[0], fastq, planted, work, smi)
     cohort_launches = phase_cohort(db + ".bkdb", fastqs, work, smi)
     phase_profile(db + ".bkdb", fastq, work, smi)
     build_launches = phase_device_build(genome_paths, make_panel(genome_paths[0]), fastq, work,
@@ -1262,6 +1422,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
                                smi)
     entry_launches = phase_entry(smi)
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
+    stream_launches = phase_stream(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs,
+                                   work, ref, panel_res, args.warm, smi)
 
     # each kernel's launches on its own path: K1 and K2 on the main path,
     # K3 on the device counter's, K4 on the gather probe's
@@ -1269,7 +1431,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     launches["gather"] = rows["gather"]["launches"]
     print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
-          f"{mesh_launches}; entry() {entry_launches}", flush=True)
+          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}",
+          flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

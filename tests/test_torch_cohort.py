@@ -248,6 +248,7 @@ def test_stage_seconds_come_from_their_threads(synth, tmp_path, monkeypatch):
     series, gives the same sample."""
     _, ref, fq, jindex = synth
     monkeypatch.setenv("BRONKO_COUNT_WORKERS", "2")
+    monkeypatch.setenv("BRONKO_NO_STREAM", "1")  # every sample through the workers
     index = from_jax_index(jindex)
     fqs = [fq, str(tmp_path / "second.fastq.gz")]
     with open(fq, "rb") as src, open(fqs[1], "wb") as dst:

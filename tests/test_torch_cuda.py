@@ -1,7 +1,8 @@
 """Kernels K1-K4, the port's main path (with the host and the device
-counter), the index built on the card and a device-counter cohort on two
-count workers, on a CUDA card, against the plain PyTorch versions on the
-same card, the host layout and the CPU run. Skipped without a card; on
+counter), the streamed single-sample path, the index built on the card
+and a device-counter cohort on two count workers, on a CUDA card, against
+the plain PyTorch versions on the same card, the host layout and the CPU
+run. Skipped without a card; on
 one: python -m pytest tests/test_torch_cuda.py -m cuda"""
 
 import os
@@ -15,6 +16,7 @@ torch.set_num_threads(1)
 
 from bronko_tpu_torch.call.engine import run_call  # noqa: E402
 from bronko_tpu_torch.config import CallConfig  # noqa: E402
+from bronko_tpu_torch.consts import KMER_COUNT_CAP  # noqa: E402
 from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.index.model import BronkoIndex  # noqa: E402
@@ -283,10 +285,68 @@ def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
     assert os.path.getsize(tmp_path / "gpu" / "s.vcf") > 0
 
 
+@pytest.mark.parametrize("cap", ["default", "mixed"])
+def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, cap):
+    """The streamed single-sample path on the card (pinned uploads, every
+    partition's pass 1 enqueued before the sample's one sync) equals the
+    classic card run and the CPU's streamed run: tallies, genome, pileup
+    and files. With the probe cap at the first partition's bytes, the
+    other partitions re-probe the sub-index (K1 again in pass 2)."""
+    from bronko_tpu_torch.call import engine
+    from bronko_tpu_torch.io import native
+
+    rng = np.random.default_rng(47)
+    genomes = []
+    base = make_genome(rng, 3000)
+    for i in range(3):
+        g = bytearray(base)
+        for p in rng.integers(0, len(g), 8):
+            g[p] = b"ACGT"[rng.integers(4)]
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    reads, _ = make_sample(base, rng, read_len=90, depth=300,
+                           major_positions={900: 0.9}, error_rate=0.004)
+    fq = str(tmp_path / "s.fastq.gz")
+    write_fastq(fq, reads)
+    index = build_index(21, genomes)
+    parts = [p[0].shape[0] for p in native.native_count_fastq_stream(
+        [fq], 21, CallConfig().min_kmers, KMER_COUNT_CAP, threads=2)]
+    if cap == "mixed":
+        dev = build_device_index(index, torch.device("cpu"))
+        J = len(dev.map_config(CallConfig().n_fixed, False).positions)
+        monkeypatch.setattr(engine, "PROBE_BYTES_CAP",
+                            parts[0] * J * engine.probe_bytes_per_query(dev))
+    results, launches = {}, {}
+    for name, device, env in (("cpu", torch.device("cpu"), "BRONKO_STREAM"),
+                              ("gpu", gpu, "BRONKO_STREAM"),
+                              ("gpu_classic", gpu, "BRONKO_NO_STREAM")):
+        for var in ("BRONKO_STREAM", "BRONKO_NO_STREAM"):
+            monkeypatch.delenv(var, raising=False)
+        monkeypatch.setenv(env, "1")
+        cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),
+                         output_pileup=True, batch_size=1024)
+        dev = build_device_index(index, device)
+        before = dict(cuda_lib.LAUNCHES)
+        (results[name],) = run_call(cfg, index, dev)
+        torch.cuda.synchronize()
+        launches[name] = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+    assert results["gpu"].path == results["cpu"].path == ("hist", "streamed")
+    assert results["gpu_classic"].path == ("hist", "saved" if cap == "default" else "subindex")
+    batches = sum(-(-n // 1024) for n in parts)
+    assert launches["gpu"]["bucket_queries"] >= batches > len(parts)
+    assert launches["gpu"]["fold_table"] >= 1
+    for name in ("gpu", "gpu_classic"):
+        assert results[name].best == results["cpu"].best
+        np.testing.assert_array_equal(results[name].tallies, results["cpu"].tallies)
+        np.testing.assert_array_equal(results[name].pileup, results["cpu"].pileup)
+        for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+            assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
+
+
 @pytest.mark.parametrize("case,path", [
     ("g12", ("words", "saved")), ("polyA9", ("flat", "subindex")),
     ("ungrouped", ("hist", "subindex"))])
-def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, case, path):
+def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, monkeypatch, case, path):
     """Past the single-word histogram on the card: 12 strains (the
     multi-word histogram, saved probe), 9 with a poly-A stretch (flat
     tally, sub-index pass 2), 5 with postings permuted in their buckets
@@ -315,6 +375,7 @@ def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, case, path):
         index = BronkoIndex(k=21, keys=index.keys, offsets=index.offsets,
                             post_loc=index.post_loc[order], post_meta=index.post_meta[order],
                             files=index.files)
+    monkeypatch.setenv("BRONKO_NO_STREAM", "1")  # the classic path, which `path` names
     results = {}
     for name, device in (("cpu", torch.device("cpu")), ("gpu", gpu)):
         cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),

@@ -175,6 +175,7 @@ def test_counter_choice(synth, monkeypatch, caplog, counter, native_ok, used):
             raise RuntimeError("building the native library failed")
         monkeypatch.setattr(engine, "native_lib", broken)
     caplog.set_level("INFO", logger="bronko")
+    monkeypatch.setenv("BRONKO_NO_STREAM", "1")  # the classic path, where count_sample chooses
     out = tmp / f"choice_{counter}_{native_ok}"
     cfg = CallConfig(genomes=genomes, reads=[fq0], output=str(out), counter=counter)
     if used is None:

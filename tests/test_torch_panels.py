@@ -409,6 +409,7 @@ def test_cli_call_matches_jax(cli_panels, monkeypatch, name, path):
     tmp, cases = cli_panels
     db, fq, truth = cases[name]
     monkeypatch.setenv("BRONKO_PLATFORM", "cpu")
+    monkeypatch.setenv("BRONKO_NO_STREAM", "1")  # the classic path, which `path` names
     dev = tl.build_device_index(load_index(db, expect_k=21), CPU)
     assert dev.tally_mode() == path[0] and dev.fid_grouped == (name != "ungrouped")
     out, jout = str(tmp / f"{name}_torch"), str(tmp / f"{name}_jax")
