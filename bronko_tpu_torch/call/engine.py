@@ -20,15 +20,30 @@ goes through:
   6. call: the noise scan, the f64 filter cascade and the writers
      (call/noise.py, call/variants.py, call/outputs.py).
 
+With the saved probe on one device, the main thread only enqueues steps
+3-5, as JAX's engine does (engine.py:753-980). On the single histogram
+word a PendingFused holds pass 1, the genome pick on the device and
+pass 2, all enqueued at once (ops/map.map_fused), and its resolve() on
+the caller thread checks the device pick against the host's; the path
+is ('hist', 'fused'). On the multi-word histogram a PendingMap holds
+pass 1 and the copy of its packed tallies and walk lengths, and its
+resolve() waits for that copy alone, picks the genome and enqueues
+pass 2; the path is ('words', 'saved'). Every copy goes to page-locked
+memory behind an event, so neither thread waits for the other's work.
+pass1, pass2 and d2h stay wall seconds (each stage's enqueue plus the
+resolve's wait for it); on a card the events' own intervals are kept
+beside them (SampleResult.device_seconds).
+
 `run_call` pipelines a cohort as the JAX engine's `_run_call_inner` does
 (engine.py:1449-1717): count workers count and upload the coming samples
 (BRONKO_COUNT_WORKERS, at most workers + 1 submitted ahead), an
 inflate-ahead worker inflates their gzip for the host counter under
-BRONKO_INFLATE_BUDGET, the main thread runs each sample's device part in
-turn (h2d when not done on a worker, pass 1, selection, pass 2, d2h), and
-one caller thread runs step 6 with at most 2 samples in flight. Each
-sample is isolated: a failure is logged and the run goes on. Summaries,
-the overview and the alignment keep the input order. `process_sample` is
+BRONKO_INFLATE_BUDGET, the main thread runs or enqueues each sample's
+device part in turn (h2d when not done on a worker, pass 1, selection,
+pass 2, d2h), and one caller thread resolves the pending ones and runs
+step 6, with at most 2 samples in flight. Each sample is isolated: a
+failure is logged and the run goes on. Summaries, the overview and the
+alignment keep the input order. `process_sample` is
 the same pieces for one sample, in series.
 
 The streamed path (JAX engine.py:1059-1374): a lone sample, or a
@@ -67,7 +82,7 @@ import pickle
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -87,7 +102,7 @@ from bronko_tpu_torch.io.naming import clean_sample_id
 from bronko_tpu_torch.ops.codec import from_u64, kmer_to_string
 from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
-    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV,
+    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, map_fused,
     pileup_from_saved, pileup_from_subindex, tally, tally_save,
 )
 from bronko_tpu_torch.parallel import distributed
@@ -121,7 +136,11 @@ class SampleResult:
     #                              sample another rank mapped (--shard-samples)
     reads: int                   # reads counted
     seconds: dict[str, float]    # wall seconds by STAGES
-    path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved' or 'subindex')
+    path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex', 'fused'
+    #                              or 'streamed')
+    # the card's own pass1/pass2/d2h seconds between CUDA events, beside
+    # the wall ones, where the device part was enqueued pending on a card
+    device_seconds: dict[str, float] = field(default_factory=dict)
 
 
 def native_lib():
@@ -375,14 +394,215 @@ class Mapped:
     pileup: np.ndarray
     path: tuple[str, str]
     seconds: dict[str, float]     # 'pass1', 'pass2', 'd2h', and 'h2d' if done here
+    # the card's own 'pass1', 'pass2', 'd2h' between CUDA events, on the
+    # pending paths on a card (_Stages.device)
+    device_seconds: dict[str, float] = field(default_factory=dict)
+
+
+class _Stages:
+    """A pending sample's pass1 / pass2 / d2h seconds, kept two ways.
+
+    `host`: wall seconds by stage, as the classic path keeps them: each
+    stage's enqueue on the main thread plus the caller thread's wait for
+    its result in resolve(), so they add up, with the other stages, to
+    the sample's own time. The time the pending sample waits for the
+    caller thread lies in no stage, as the classic path's wait between
+    the threads does not.
+
+    `device_seconds()` (on a card only): the card's time between CUDA
+    events recorded at the same boundaries on the shared current stream.
+    Work the other thread enqueued between two events counts in that
+    interval."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = {"pass1": 0.0, "pass2": 0.0, "d2h": 0.0}
+        self.events: dict = {}
+        self.restart()
+        self.record("start")
+
+    def restart(self) -> None:
+        """Start timing a stretch on the calling thread."""
+        self.t = time.perf_counter()
+
+    def record(self, name: str) -> None:
+        """On a card, record event `name` on the current stream."""
+        if self.device.type == "cuda":
+            self.events[name] = torch.cuda.Event(enable_timing=True)
+            self.events[name].record(torch.cuda.current_stream(self.device))
+
+    def lap(self, stage: str) -> None:
+        """Charge the host wall since the last restart or lap to `stage`."""
+        now = time.perf_counter()
+        self.host[stage] += now - self.t
+        self.t = now
+
+    def end(self, stage: str) -> None:
+        """`stage` is enqueued: charge its host wall and record its event."""
+        self.lap(stage)
+        self.record(stage)
+
+    def wait(self, name: str, stage: str | None = None) -> None:
+        """Block the calling thread until the work before event `name` is
+        done (the event alone, not work enqueued after it), charging the
+        wait to `stage` (default `name`)."""
+        if self.device.type == "cuda":
+            self.events[name].synchronize()
+        self.lap(stage or name)
+
+    def device_seconds(self, *pairs) -> dict[str, float]:
+        """{stage: seconds between its two events} for (stage, first, last)."""
+        if self.device.type != "cuda":
+            return {}
+        return {stage: self.events[first].elapsed_time(self.events[last]) / 1e3
+                for stage, first, last in pairs}
+
+
+def _copy_to_host(t: torch.Tensor) -> torch.Tensor:
+    """Enqueue a copy of a device tensor into page-locked host memory and
+    return the host tensor, valid once the stream has passed the copy (an
+    event after it); a CPU tensor is returned as it is."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+@dataclass
+class _Pending:
+    """A sample's device work enqueued on the main thread with the copy of
+    its tallies and walk lengths (+ the device pick) packed in one int64
+    vector, as JAX's `meta` (engine.py:874-881); resolved on the caller
+    thread."""
+    batches: list
+    saved: list
+    meta: torch.Tensor        # (3G + nb*G [+ 1],) int64 on the device; held until copied
+    meta_host: torch.Tensor   # its host copy
+    stages: _Stages
+    mcfg: object
+    n_kmers: int
+    cstats: CountStats
+    t_start: float
+    seconds: dict             # h2d, when _map_one uploaded
+
+    def _select(self, index: BronkoIndex, dev: DeviceIndex, tail: int, note: str = ""):
+        """The host's side of pass 1 once its copy is in: the tallies and
+        walk lengths (meta's last `tail` words left aside), the log line
+        and the host pick, charged to pass1."""
+        G = dev.num_genomes
+        meta = self.meta_host.numpy()
+        tallies = meta[:3 * G].reshape(G, 3).copy()
+        walks = meta[3 * G:meta.shape[0] - tail].reshape(-1, G)
+        log.info("Tallied %d kmers in %.2fs%s", self.n_kmers,
+                 time.perf_counter() - self.t_start, note)
+        best, triple = _select_and_log(tallies, index, dev, self.cstats)
+        self.stages.lap("pass1")
+        return tallies, walks[:, best].tolist(), best, triple
+
+    def _pass2(self, dev: DeviceIndex, walk: list, best: int) -> torch.Tensor:
+        return pileup_from_saved(self.batches, self.saved, walk, dev.pass2_postings(), best,
+                                 self.mcfg, dev.g_total_len, int(dev.file_bases[best]))
+
+    def _mapped(self, best, triple, tallies, pileup, path, *pairs) -> Mapped:
+        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host},
+                      self.stages.device_seconds(*pairs))
+
+
+@dataclass
+class PendingMap(_Pending):
+    """Pass 1 with the saved probe on the multi-word histogram (JAX
+    engine.py:884-913). resolve() waits for the copy of pass 1 alone,
+    picks the genome on the host, enqueues pass 2 and the pileup's copy,
+    and waits for each. Marks: start, pass1 (the copy enqueued), then
+    select, pass2, d2h."""
+
+    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
+        self.stages.restart()
+        self.stages.wait("pass1")
+        tallies, walk, best, triple = self._select(index, dev, 0)
+        self.stages.record("select")
+        t1 = time.perf_counter()
+        pileup_t = self._pass2(dev, walk, best)
+        self.stages.end("pass2")
+        self.stages.wait("pass2")
+        log.info("Scattered pileup in %.2fs", time.perf_counter() - t1)
+        pileup = _copy_to_host(pileup_t)
+        self.stages.end("d2h")
+        self.stages.wait("d2h")
+        return self._mapped(best, triple, tallies, pileup.numpy().copy(),
+                            (dev.tally_mode(), "saved"), ("pass1", "start", "pass1"),
+                            ("pass2", "select", "pass2"), ("d2h", "pass2", "d2h"))
+
+
+@dataclass
+class PendingFused(_Pending):
+    """Both passes and the genome pick on the device, enqueued at once
+    (ops/map.map_fused; JAX engine.py:809-839 and :924-980), then the
+    copies of meta (with the device pick last) and of the pileup.
+    resolve() waits for the copies, picks the genome on the host and,
+    should the two picks differ (they cannot: the score is the same f64
+    division), logs JAX's line and walks pass 2 again for the host's
+    pick, its host wall charged to pass2. Marks: start, pass1, pass2,
+    d2h (the copies enqueued)."""
+    pileup: torch.Tensor = None       # (4, Tg+1, 4) int32 of the device pick; held until copied
+    pileup_host: torch.Tensor = None
+
+    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
+        self.stages.restart()
+        for stage in ("pass1", "pass2", "d2h"):
+            self.stages.wait(stage)
+        tallies, walk, best, triple = self._select(index, dev, 1, " (fused)")
+        if int(self.meta_host[-1]) == best:
+            pileup = self.pileup_host.numpy().copy()
+        else:
+            log.info("fused pass-2 budget overflowed or selection guard tripped; re-running "
+                     "pass 2 with the exact budget")
+            t1 = time.perf_counter()
+            host = _copy_to_host(self._pass2(dev, walk, best))
+            self.stages.record("guard")
+            self.stages.wait("guard", "pass2")
+            pileup = host.numpy().copy()
+            log.info("Scattered pileup in %.2fs", time.perf_counter() - t1)
+        return self._mapped(best, triple, tallies, pileup, ("hist", "fused"),
+                            ("pass1", "start", "pass1"), ("pass2", "pass1", "pass2"),
+                            ("d2h", "pass2", "d2h"))
+
+
+def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountStats,
+                   t_start: float, seconds: dict) -> PendingMap | PendingFused:
+    """The single-device path with the saved probe, enqueued with no host
+    sync (JAX engine.py:801-881): every stage fused on the single
+    histogram word (map_fused), pass 1 alone on the multi-word one."""
+    stages = _Stages(dev.device)
+    if dev.hist is None:
+        tallies, lanes, saved = tally_save(batches, dev, mcfg)
+        meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1)])
+        meta_host = _copy_to_host(meta)
+        stages.end("pass1")
+        return PendingMap(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
+                          t_start, seconds)
+    tallies, lanes, best, saved, pileup = map_fused(
+        batches, dev, mcfg, dev.glen2_t(), dev.file_bases_t(),
+        after_pass1=lambda: stages.end("pass1"))
+    stages.end("pass2")
+    meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1), best])
+    meta_host, pileup_host = _copy_to_host(meta), _copy_to_host(pileup)
+    stages.end("d2h")
+    return PendingFused(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
+                        t_start, seconds, pileup, pileup_host)
 
 
 def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
-             cfg: CallConfig, mapper: ShardedMapper | None = None) -> Mapped:
-    """The device part of one sample: h2d (unless a count worker uploaded
-    the batches), pass 1, selection, pass 2, d2h; the device synced at
-    every stage boundary. With a mapper (--mesh) the rank uploads its own
-    batches and both passes run over the mesh (JAX engine.py:849-864)."""
+             cfg: CallConfig, mapper: ShardedMapper | None = None):
+    """The device part of one sample. On one device with the saved probe
+    (saves_probe) only the enqueue happens here, as in JAX's engine
+    (engine.py:753-881): it returns a PendingFused (the single histogram
+    word) or a PendingMap (the multi-word one), which the caller thread
+    resolves. Otherwise (the sub-index pass 2, or a mapper: --mesh, whose
+    collectives run on this thread) it returns the Mapped sample: pass 1,
+    selection, pass 2 and d2h, the device synced at every stage boundary.
+    h2d is done here unless a count worker uploaded the batches."""
     seconds = {}
     device = dev.device if mapper is None else mapper.device
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
@@ -396,9 +616,11 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
                    else mapper.place_batches(kmers, counts, cfg.batch_size))
         _sync(device)
         seconds["h2d"] = time.perf_counter() - t[0]
-        t = [time.perf_counter()]
+    if mapper is None and saves_probe(dev, n_kmers, len(mcfg.positions)):
+        return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t[0], seconds)
+    t = [time.perf_counter()]
 
-    p1 = (run_pass1(batches, dev, mcfg, n_kmers) if mapper is None
+    p1 = (run_pass1(batches, dev, mcfg) if mapper is None
           else mapper.run_tallies(batches, mcfg))
     log.info("Tallied %d kmers in %.2fs", n_kmers, time.perf_counter() - t[-1])
     best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
@@ -416,15 +638,19 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
 
 
 def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
-              mapped: Mapped, reads: int, seconds: dict[str, float]) -> SampleResult:
-    """Step 6 for one sample (the caller thread's work), timed there;
-    `seconds` holds the stages timed elsewhere."""
+              mapped, reads: int, seconds: dict[str, float]) -> SampleResult:
+    """Step 6 for one sample (the caller thread's work), timed there, after
+    resolving a pending device part (JAX engine.py:1037-1040); `seconds`
+    holds the stages timed elsewhere."""
+    if isinstance(mapped, (PendingMap, PendingFused)):
+        mapped = mapped.resolve(index, dev)
     t0 = time.perf_counter()
     summary, records = _finish_one(display, index, dev, cfg, mapped.best, mapped.pileup,
                                    mapped.triple)
     seconds = {**seconds, **mapped.seconds, "call": time.perf_counter() - t0}
     return SampleResult(summary, records, mapped.tallies, mapped.best, mapped.pileup,
-                        reads, {s: seconds[s] for s in STAGES}, mapped.path)
+                        reads, {s: seconds[s] for s in STAGES}, mapped.path,
+                        mapped.device_seconds)
 
 
 def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
@@ -464,34 +690,27 @@ class Pass1:
     tallies: np.ndarray      # (G, 3) int64 perfect / variant / unique
     lanes: np.ndarray        # (nb, G) int64 pass-2 walk length by batch and genome
     #                          (over a mesh (1, G): the whole sample's)
-    saved: list | None       # the saved probe, or None: pass 2 probes the sub-index
-    path: tuple[str, str]    # (tally mode, 'saved' or 'subindex')
+    path: tuple[str, str]    # (tally mode, 'subindex', or 'saved' by the routed mesh)
 
 
-def run_pass1(batches, dev: DeviceIndex, mcfg, n_kmers: int) -> Pass1:
-    """Pass 1 over the sample's device batches, the route chosen as the JAX
-    engine's single-device dispatch does (engine.py:780-870); tallies and
-    walk lengths come back in one copy."""
+def run_pass1(batches, dev: DeviceIndex, mcfg) -> Pass1:
+    """Pass 1 over the sample's device batches without a saved probe (no
+    histogram, postings not grouped by genome, or a probe past
+    PROBE_BYTES_CAP; JAX engine.py:780-870); tallies and walk lengths
+    come back in one copy."""
     G = dev.num_genomes
     mode = dev.tally_mode()
-    saved = None
-    if saves_probe(dev, n_kmers, len(mcfg.positions)):
-        tallies_t, lanes_t, saved = tally_save(batches, dev, mcfg)
-    else:
-        tallies_t, lanes_t = tally(batches, dev, mcfg, mode)
+    tallies_t, lanes_t = tally(batches, dev, mcfg, mode)
     host = torch.cat([tallies_t.to(torch.int64).reshape(-1),
                       lanes_t.reshape(-1)]).cpu().numpy()
-    return Pass1(host[:3 * G].reshape(G, 3), host[3 * G:].reshape(-1, G), saved,
-                 (mode, "subindex" if saved is None else "saved"))
+    return Pass1(host[:3 * G].reshape(G, 3), host[3 * G:].reshape(-1, G), (mode, "subindex"))
 
 
 def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Tensor:
-    """Pass 2 for genome `best`: the (4, Tg+1, 4) int32 pileup on the device."""
-    walk = p1.lanes[:, best].tolist()
-    if p1.saved is None:
-        return pileup_from_subindex(batches, dev.subindex(best), walk, mcfg, dev.g_total_len)
-    return pileup_from_saved(batches, p1.saved, walk, dev.pass2_postings(), best, mcfg,
-                             dev.g_total_len, int(dev.file_bases[best]))
+    """Pass 2 for genome `best` through its sub-index: the (4, Tg+1, 4)
+    int32 pileup on the device."""
+    return pileup_from_subindex(batches, dev.subindex(best), p1.lanes[:, best].tolist(), mcfg,
+                                dev.g_total_len)
 
 
 # --- the streamed single-sample path (JAX engine.py:1059-1374) ---------------
@@ -883,7 +1102,7 @@ class ShardedMapper:
         self.layouts_used.add(self._layout)
         if self._layout != "routed":
             out = sharded_tally(batches, self.shard, mcfg, self.mode, self.mesh)
-            return Pass1(out[:, :3], out[None, :, 3], None, (self.mode, "subindex"))
+            return Pass1(out[:, :3], out[None, :, 3], (self.mode, "subindex"))
         if self._chunk is None:
             chunks, bounds = route_split(self.sharded, self.mesh.n_data)
             self._chunk = upload_chunk(chunks, bounds, self.mesh.g, self.mesh.d, self.device)
@@ -891,8 +1110,7 @@ class ShardedMapper:
         out, saved, own = routed_tally(batches, self._chunk, mcfg, self.mode, self.mesh, save)
         if save:
             self._saved = (saved, own)
-        return Pass1(out[:, :3], out[None, :, 3], None,
-                     (self.mode, "saved" if save else "subindex"))
+        return Pass1(out[:, :3], out[None, :, 3], (self.mode, "saved" if save else "subindex"))
 
     def pass2_share(self, batches):
         """This rank's share of its pass-1 batches for pass 2: the D*G

@@ -12,8 +12,9 @@ genomes; neither exists when a bucket holds more than 255 postings.
 
 Built on first use and cached, so an index whose main path does not need
 them never uploads them: the per-posting genome ids of the flat tally
-(`posting_fids`) and the selected genome's sub-index (`subindex`), which
-pass 2 probes when the saved probe cannot serve it.
+(`posting_fids`), the selected genome's sub-index (`subindex`), which
+pass 2 probes when the saved probe cannot serve it, and the fused path's
+per-genome lengths and bases (`glen2_t`, `file_bases_t`).
 """
 
 from __future__ import annotations
@@ -94,6 +95,10 @@ class DeviceIndex:
     subindex_source: Callable[[int], tuple] = field(repr=False, default=None)
     _fids: torch.Tensor | None = field(repr=False, default=None)
     _subindex: dict = field(repr=False, default_factory=dict)
+    # (G,) int64 2*genome_lens and file_bases on the device, cached at the
+    # first fused sample (JAX's _glen2_dev / _fbases_dev)
+    _glen2: torch.Tensor | None = field(repr=False, default=None)
+    _fbases: torch.Tensor | None = field(repr=False, default=None)
 
     def __post_init__(self):
         # the keys are sorted as uint64; flipping bit 63 makes that order
@@ -139,6 +144,19 @@ class DeviceIndex:
         bases = torch.from_numpy(self.file_bases).to(self.device)[fids]
         return (((local >> 6) + bases) << 22) | (fids << 6) | (local & 63)
 
+    def glen2_t(self) -> torch.Tensor:
+        """(G,) int64 2*genome_lens on the device (the device pick's)."""
+        if self._glen2 is None:
+            self._glen2 = _put_async(2 * self.genome_lens, self.device)
+        return self._glen2
+
+    def file_bases_t(self) -> torch.Tensor:
+        """(G,) int64 file_bases on the device (the fused pass 2's, int64
+        postings)."""
+        if self._fbases is None:
+            self._fbases = _put_async(self.file_bases, self.device)
+        return self._fbases
+
     def subindex(self, g: int) -> SubIndex:
         """Genome g's sub-index, from subindex_source at first use (host
         arrays are uploaded), then cached."""
@@ -149,10 +167,20 @@ class DeviceIndex:
     def device_bytes(self) -> int:
         """Bytes of every tensor this index holds on its device now."""
         tensors = [self.keys, self.keys_ordered, self.offsets, self.hist, self.hist_words,
-                   self.postings_local32, self.postings, self._fids]
+                   self.postings_local32, self.postings, self._fids, self._glen2,
+                   self._fbases]
         for sub in self._subindex.values():
             tensors += [sub.keys_ordered, sub.offsets, sub.postings]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _put_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int64 host array on `device`: on a CUDA device through page-locked
+    memory, enqueued without a host sync."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def load_subindex(parts: tuple, device: torch.device) -> SubIndex:

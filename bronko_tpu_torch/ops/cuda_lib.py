@@ -9,11 +9,12 @@ library) and loads it with ctypes. A failed build raises with nvcc's
 output.
 
 The wrappers live beside their plain PyTorch versions
-(`ops/cuda_buckets.py`, `ops/count.py`, `ops/cuda_gather.py`). Each adds
-one to `LAUNCHES[name]` where it launches its kernel, and nowhere else, so
-a run can show that its path went through the kernels. Kernels launch from
-the engine's count workers as well as its main thread, so the count goes
-through `count_launch`, under a lock: `LAUNCHES[name] += 1` is a read,
+(`ops/cuda_buckets.py`, `ops/count.py`, `ops/cuda_gather.py`,
+`ops/cuda_map.py`). Each adds one to `LAUNCHES[name]` where it launches
+its kernel, and nowhere else, so a run can show that its path went
+through the kernels. Kernels launch from the engine's count workers and
+its caller thread as well as its main thread, so the count goes through
+`count_launch`, under a lock: `LAUNCHES[name] += 1` is a read,
 an add and a write, and two threads can interleave them and lose one.
 """
 
@@ -33,12 +34,13 @@ __all__ = ["LAUNCHES", "LIB_PATH", "build", "library", "check_cuda", "check_k",
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 SOURCES = tuple(os.path.join(CSRC_DIR, f) for f in (
-    "bucket_kernels.cu", "count_kernels.cu", "gather_kernel.cu"))
+    "bucket_kernels.cu", "count_kernels.cu", "gather_kernel.cu", "map_kernels.cu"))
 LIB_PATH = os.path.join(BUILD_DIR, "libbronko_kernels.so")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bucket_queries": 0, "fold_table": 0, "pack_windows": 0, "gather": 0}
+LAUNCHES = {"bucket_queries": 0, "fold_table": 0, "pack_windows": 0, "gather": 0,
+            "probe_tally": 0, "walk_scatter": 0}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -112,6 +114,10 @@ def library():
                 "bronko_fold_table": [i32, p, p, i64, i32, p, p],
                 "bronko_pack_windows": [i32, p, p, i64, i64, i32, p, p, p],
                 "bronko_gather": [i32, p, i64, p, i64, p, p],
+                "bronko_probe_tally": [i32, p, p, i64, i32, p, i64, p, p, i32, i32, p, p, p,
+                                       p, p],
+                "bronko_walk_scatter": [i32, p, i32, i32, p, p, p, i32, p, p, i32, i64, p,
+                                        i32, i64, p, i64, p],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

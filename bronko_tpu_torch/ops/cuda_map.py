@@ -1,0 +1,253 @@
+"""Hopper kernels (b) probe_tally and (c) walk_scatter: wrappers and their
+plain PyTorch versions, with the pieces of the mapper both share.
+
+Neither replaces a Pallas kernel: they fuse the XLA work of the JAX
+mapper (`bronko_tpu/ops/map.py`: `_tally_save_body`'s probe and
+classification; `_pileup_from_saved_body`'s walk and scatter). The kernels
+live in `bronko_tpu_torch/csrc/map_kernels.cu`, built and loaded with the
+port's other kernels by `ops/cuda_lib.py`.
+
+(b) probe_tally: pass 1 after K1 on the single-word histogram. Each
+k-mer's J bucket queries probe the sorted keys (the LAST equal row); a hit
+gives its CSR start, and its histogram word where the k-mer's count is
+positive; the words' bytes summed over J are the k-mer's posting hits by
+genome, classified into the (G, 3) tallies, and summed into the batch's
+(G,) walk lengths.
+
+(c) walk_scatter: pass 2's exact walk. Each (k-mer, bucket) row walks its
+own range of the postings, given as (start, lens), or as the saved probe
+(start, h) with the selected genome `best` on the device; each posting
+adds one to a count plane and raises a depth plane to the k-mer's count
+in the (4, T+1, 4) int32 pileup. No host value sizes the walk.
+
+Dispatch follows the input's device: a CPU tensor goes to the plain
+version, a CUDA tensor to the kernel. Nothing falls back from one to the
+other. Each wrapper adds one to `cuda_lib.LAUNCHES[name]`
+(`cuda_lib.count_launch`) where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bronko_tpu_torch.ops.cuda_lib import check_cuda, count_launch, library, raise_on, stream
+
+__all__ = ["probe_tally", "probe_tally_plain", "walk_scatter", "walk_scatter_plain"]
+
+# pileup tensor layout: (n_planes=4, T+1, 4 bases)
+# plane 0: depth fwd, 1: depth rev, 2: counts fwd, 3: counts rev
+PLANE_DEPTH_FWD = 0
+PLANE_DEPTH_REV = 1
+PLANE_CNT_FWD = 2
+PLANE_CNT_REV = 3
+
+SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
+MAX_WORD_GENOMES = 8   # genomes of the single histogram word
+
+
+def _probe(q: torch.Tensor, keys_ordered: torch.Tensor):
+    """Key row of each bucket query: (row, hit). A query resolves to the
+    LAST row whose key equals it (the JAX merge probe's rule, which the
+    sentinel-collision fix relies on); row is 0 where hit is False.
+    `keys_ordered` are the sorted keys with bit 63 flipped, which turns
+    their unsigned order into searchsorted's signed one, so ids >= 2^63
+    (k=31 wraps) order and match correctly."""
+    qs = q ^ SIGN_BIT
+    row = torch.searchsorted(keys_ordered, qs, right=True) - 1
+    rowc = row.clamp_min(0)
+    return rowc, (row >= 0) & (keys_ordered[rowc] == qs)
+
+
+def _hist_bytes(h: torch.Tensor) -> torch.Tensor:
+    """(B, J) or (B, J, W) histogram words -> (B, J, bytes) uint8: genome g's
+    count is byte g (little-endian words, 8 genomes a word)."""
+    return (h[..., None] if h.dim() == 2 else h).view(torch.uint8)
+
+
+def _hist_hits(h: torch.Tensor, G: int) -> torch.Tensor:
+    """Histogram words -> (B, G) int32 posting hits: the bytes summed over J."""
+    return _hist_bytes(h).sum(dim=1, dtype=torch.int32)[:, :G]
+
+
+def classify_tallies(hits: torch.Tensor, valid_kmer: torch.Tensor, nb: int) -> torch.Tensor:
+    """Perfect / variant / unique-perfect counts per genome, (G, 3) int32
+    (call.rs:1390-1418). Duplicate postings within a genome can push hits
+    past nb; such a k-mer counts as 'variant', as in the reference."""
+    valid = valid_kmer[:, None]
+    perfect = (hits == nb) & valid
+    variant = (hits > 0) & (hits != nb) & valid
+    unique = perfect & (perfect.sum(dim=1, keepdim=True) == 1)
+    return torch.stack(
+        [perfect.sum(dim=0), variant.sum(dim=0), unique.sum(dim=0)], dim=1
+    ).to(torch.int32)
+
+
+# --- (b): pass 1 after K1 on the single-word histogram -----------------------
+
+def probe_tally_plain(q, counts, keys_ordered, offsets, hist, tallies):
+    """q (B, J) int64 bucket ids (K1's), counts (B,) int32, keys_ordered
+    (U,) int64 (bit 63 flipped), offsets (U+1,) int32, hist (U,) int32 or
+    int64 words. Adds the batch's perfect / variant / unique counts into
+    tallies (G, 3) int32 and returns (start (B, J) int32, zero on a miss;
+    h (B, J) words, zero on a miss and for zero-count k-mers; lanes (G,)
+    int64, the batch's posting hits by genome: its pass-2 walk lengths)."""
+    rowc, hit = _probe(q, keys_ordered)
+    valid = hit & (counts > 0)[:, None]
+    h = torch.where(valid, hist[rowc], 0)
+    start = torch.where(hit, offsets[rowc], 0)
+    hits = _hist_hits(h, tallies.shape[0])
+    tallies += classify_tallies(hits, counts > 0, q.shape[1])
+    return start, h, hits.sum(dim=0, dtype=torch.int64)
+
+
+def probe_tally(q, counts, keys_ordered, offsets, hist, tallies):
+    """Kernel (b). Same result as probe_tally_plain; launches the kernel for
+    CUDA tensors (tallies is added into on the card)."""
+    if q.device.type == "cpu":
+        return probe_tally_plain(q, counts, keys_ordered, offsets, hist, tallies)
+    check_cuda(q, torch.int64, "q", dim=2)
+    check_cuda(counts, torch.int32, "counts")
+    check_cuda(keys_ordered, torch.int64, "keys_ordered")
+    check_cuda(offsets, torch.int32, "offsets")
+    if hist.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"hist must hold int32 or int64 words, got {hist.dtype}")
+    check_cuda(hist, hist.dtype, "hist")
+    check_cuda(tallies, torch.int32, "tallies", dim=2)
+    B, J = q.shape
+    U, G = keys_ordered.shape[0], tallies.shape[0]
+    if (counts.shape[0] != B or offsets.shape[0] != U + 1 or hist.shape[0] != U
+            or tallies.shape[1] != 3 or not 1 <= G <= MAX_WORD_GENOMES):
+        raise ValueError(f"probe_tally: q {tuple(q.shape)}, counts {tuple(counts.shape)}, "
+                         f"keys ({U},), offsets {tuple(offsets.shape)}, hist "
+                         f"{tuple(hist.shape)}, tallies {tuple(tallies.shape)}")
+    start = torch.empty((B, J), dtype=torch.int32, device=q.device)
+    h = torch.empty((B, J), dtype=hist.dtype, device=q.device)
+    lanes = torch.zeros(G, dtype=torch.int64, device=q.device)
+    if B:
+        err = library().bronko_probe_tally(
+            q.device.index or 0, q.data_ptr(), counts.data_ptr(), B, J,
+            keys_ordered.data_ptr(), U, offsets.data_ptr(), hist.data_ptr(),
+            hist.element_size(), G, start.data_ptr(), h.data_ptr(), tallies.data_ptr(),
+            lanes.data_ptr(), stream(q))
+        raise_on(err, "probe_tally")
+        count_launch("probe_tally")
+    return start, h, lanes
+
+
+# --- (c): pass 2's exact walk and scatter ------------------------------------
+
+def _walk(startf: torch.Tensor, lensf: torch.Tensor, n_lanes: int):
+    """Exact posting walk: lane l of row r reads posting startf[r] + l -
+    (the lanes of the rows before r). Returns (row (n_lanes,) of lensf's
+    dtype, posting index (n_lanes,) int64); n_lanes must be lensf's sum."""
+    own = torch.repeat_interleave(lensf, output_size=n_lanes)
+    first_lane = torch.cumsum(lensf, dim=0) - lensf
+    lane = torch.arange(n_lanes, dtype=torch.int64, device=lensf.device)
+    return own, startf[own] + (lane - first_lane[own])
+
+
+def _walk_scatter(flat, pc, startf, lensf, n_lanes: int, postings, *, J: int, k: int,
+                  row_len: int, file_base: int):
+    """Walk the (k-mer, bucket) rows' posting ranges and scatter into the
+    flat pileup: max of the k-mer count into the depth planes, +1 into the
+    count planes. int32 postings are genome-local lpos<<6 | canon<<5 |
+    idx; int64 ones are pos<<22 | meta, pos shifted by -file_base into
+    the genome's local space (JAX _scatter_lanes). Returns each lane's
+    (row, posting)."""
+    own, at = _walk(startf, lensf, n_lanes)
+    post = postings[at]
+    if post.dtype == torch.int32:
+        pos, meta = post >> 6, post & 63
+    else:
+        pos, meta = (post >> 22) - file_base, post & 0x3FFFFF
+    idx = meta & 31
+    is_canon = (meta >> 5) & 1
+    v = pc[(own // J) * k + idx]  # mirror bits hold the k-1-idx complement
+    base = torch.where(is_canon == 1, (v >> 2) & 3, v & 3)
+    fwd = is_canon == ((v >> 4) & 1)
+    cell = pos.to(torch.int64) * 4 + base
+    depth_at = torch.where(fwd, PLANE_DEPTH_FWD * row_len, PLANE_DEPTH_REV * row_len) + cell
+    cnt_at = torch.where(fwd, PLANE_CNT_FWD * row_len, PLANE_CNT_REV * row_len) + cell
+    flat.scatter_reduce_(0, depth_at, v >> 5, reduce="amax")
+    flat.index_add_(0, cnt_at, torch.ones_like(v))
+    return own, post
+
+
+def _file_base_of(file_base, best):
+    """The genome's base as walk_scatter reads it: file_base[best] for a
+    table of several bases and a device `best`, else file_base[0]."""
+    if file_base is None:
+        return None
+    return file_base[best] if best is not None and file_base.numel() > 1 else file_base[:1]
+
+
+def walk_scatter_plain(pileup, pc, start, postings, *, k, lens=None, h=None, best=None,
+                       file_base=None):
+    """Walk every (k-mer, bucket) row of one batch into `pileup` ((4, T+1,
+    4) int32, added into in place). pc (B*k,) int32 K2 records; start
+    (B, J) int32; the rows' lengths are `lens` (B, J) int32, or come from
+    the saved probe: `h` (B, J) histogram words and `best` (1,) int64, the
+    genome whose byte is the length and whose bytes below it the offset
+    added to start. postings int32 (genome-local) or int64 (pos<<22 |
+    meta); `file_base` (int64, one base, or one a genome read at best)
+    moves an int64 posting's pos into the genome's space (None: 0)."""
+    J = start.shape[1]
+    if lens is None:
+        b = int(best)
+        hb = _hist_bytes(h)
+        lens = hb[..., b].to(torch.int32)
+        start = start + hb[..., :b].sum(dim=-1, dtype=torch.int32)
+    base = _file_base_of(file_base, best)
+    lensf = lens.reshape(-1)
+    n_lanes = int(lensf.sum())
+    if n_lanes:
+        _walk_scatter(pileup.view(-1), pc, start.reshape(-1), lensf, n_lanes, postings, J=J,
+                      k=k, row_len=pileup.shape[1] * 4,
+                      file_base=0 if base is None else int(base))
+
+
+def walk_scatter(pileup, pc, start, postings, *, k, lens=None, h=None, best=None,
+                 file_base=None):
+    """Kernel (c). Same result as walk_scatter_plain; launches the kernel
+    for CUDA tensors, reading `best` and the file base on the card."""
+    if pileup.device.type == "cpu":
+        return walk_scatter_plain(pileup, pc, start, postings, k=k, lens=lens, h=h,
+                                  best=best, file_base=file_base)
+    check_cuda(pileup, torch.int32, "pileup", dim=3)
+    check_cuda(pc, torch.int32, "pc")
+    check_cuda(start, torch.int32, "start", dim=2)
+    if postings.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"postings must be int32 or int64, got {postings.dtype}")
+    check_cuda(postings, postings.dtype, "postings")
+    B, J = start.shape
+    word_bytes = 0
+    if lens is not None:
+        check_cuda(lens, torch.int32, "lens", dim=2)
+        if lens.shape != start.shape:
+            raise ValueError(f"lens {tuple(lens.shape)} and start {tuple(start.shape)} differ")
+    else:
+        if h is None or best is None or h.dtype not in (torch.int32, torch.int64):
+            raise ValueError("walk_scatter needs lens, or h (int32/int64 words) and best")
+        check_cuda(h, h.dtype, "h", dim=2)
+        check_cuda(best, torch.int64, "best")
+        if h.shape != start.shape or best.numel() != 1:
+            raise ValueError(f"h {tuple(h.shape)} must match start {tuple(start.shape)} "
+                             f"and best hold one genome")
+        word_bytes = h.element_size()
+    by_best = 0
+    if file_base is not None:
+        check_cuda(file_base, torch.int64, "file_base")
+        by_best = int(best is not None and file_base.numel() > 1)
+    if pileup.shape[0] != 4 or pileup.shape[2] != 4 or pc.shape[0] != B * k:
+        raise ValueError(f"walk_scatter: pileup {tuple(pileup.shape)}, pc "
+                         f"{tuple(pc.shape)} for B = {B}, k = {k}")
+    if B * J:
+        err = library().bronko_walk_scatter(
+            pileup.device.index or 0, pc.data_ptr(), k, J, start.data_ptr(),
+            None if lens is None else lens.data_ptr(), None if h is None else h.data_ptr(),
+            word_bytes, None if best is None else best.data_ptr(), postings.data_ptr(),
+            postings.element_size(), postings.shape[0],
+            None if file_base is None else file_base.data_ptr(),
+            by_best, B * J, pileup.data_ptr(), pileup.shape[1] * 4, stream(pileup))
+        raise_on(err, "walk_scatter")
+        count_launch("walk_scatter")

@@ -3,7 +3,8 @@ genome's pileup (pass 2).
 
 Counterpart of the single-device paths of `bronko_tpu/ops/map.py`
 (tally_save_jit, tally_save_words_jit, tally_all_jit,
-pileup_from_saved_jit, pileup_from_saved_words_jit, pileup_all_jit; see
+pileup_from_saved_jit, pileup_from_saved_words_jit, pileup_all_jit,
+map_fused_jit; see
 that module's docstring for the reference semantics):
 
 PASS 1 — per batch: K1 canonicalizes the k-mers and computes the J
@@ -13,46 +14,50 @@ posting hits then come from the row's histogram — the single packed word
 or the multi-word one, both read as bytes, genome g in byte g — or, with
 no histogram, from the flat tally: every posting of every hit bucket
 counts one for its genome. Hits are classified as perfect / variant /
-unique. `tally_save` also keeps each batch's probe (CSR start,
-histogram) for pass 2.
+unique. On the single word, kernel (b) (ops/cuda_map.probe_tally) does
+the search, the pickup and the classification in one launch. `tally_save`
+also keeps each batch's probe (CSR start, histogram) for pass 2.
 
 PASS 2 — for the selected genome only: K2 builds the per-(k-mer,
-position) fold table; each (k-mer, bucket) walks its exact range of the
-genome's postings, decodes them and scatter-maxes the k-mer count into
-the depth planes and scatter-adds 1 into the count planes of the
-(4, Tg+1, 4) int32 pileup. The range comes from the saved probe (bucket
-start + the bytes of the genomes below, when postings are grouped by
-genome) or from a K1 probe of the genome's own sub-index. Integer max and
-add give the same result in any order. Every walk is exact — its length
-comes from pass 1 — so the JAX path's lane budget, overflow retry and
-dump-row masking have no job.
+position) fold table; kernel (c) (ops/cuda_map.walk_scatter) walks each
+(k-mer, bucket)'s exact range of the genome's postings, decodes them and
+max-es the k-mer count into the depth planes and adds 1 into the count
+planes of the (4, Tg+1, 4) int32 pileup. The range comes from the saved
+probe (bucket start + the bytes of the genomes below, when postings are
+grouped by genome) or from a K1 probe of the genome's own sub-index.
+Integer max and add give the same result in any order. Every walk is
+exact and loops over its own range, so no lane count known on the host
+sizes it, and the JAX path's lane budget, overflow retry and dump-row
+masking have no job.
+
+FUSED — map_fused (JAX's map_fused_jit): pass 1, the genome pick on the
+device (pick_best_device) and pass 2 for that genome in one enqueue,
+with no host sync.
 
 WHOLE INDEX — probe_scatter / map_batch (JAX's, the step entry.py and the
 mesh's map step drive): one batch's K1 probe, the exact walk of every
 genome's postings at their global position, the K2 fold and the scatter
-into the all-genome pileup, with hits by posting genome.
+into the all-genome pileup, with hits by posting genome. It and the flat
+tally keep the torch walk (_walk).
 
-Every function takes tensors on one device; K1 and K2 dispatch on it
-(ops/cuda_buckets.py).
+Every function takes tensors on one device; the kernels dispatch on it
+(ops/cuda_buckets.py, ops/cuda_map.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions
 from bronko_tpu_torch.ops.cuda_buckets import bucket_queries, fold_table
+from bronko_tpu_torch.ops.cuda_map import (  # noqa: F401 — the mapper's names
+    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, SIGN_BIT, _hist_bytes,
+    _hist_hits, _probe, _walk, _walk_scatter, classify_tallies, probe_tally, walk_scatter,
+)
 
-# pileup tensor layout: (n_planes=4, T+1, 4 bases)
-# plane 0: depth fwd, 1: depth rev, 2: counts fwd, 3: counts rev
-PLANE_DEPTH_FWD = 0
-PLANE_DEPTH_REV = 1
-PLANE_CNT_FWD = 2
-PLANE_CNT_REV = 3
-
-SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
 # lanes the flat tally expands at once (plus at most one bucket's postings)
 FLAT_LANE_CHUNK = 1 << 24
 
@@ -82,19 +87,6 @@ def _bucket_q(kmers: torch.Tensor, *, cfg: MapConfig):
     return bucket_queries(kmers, cfg.k, cfg.positions)
 
 
-def _probe(q: torch.Tensor, keys_ordered: torch.Tensor):
-    """Key row of each bucket query: (row, hit). A query resolves to the
-    LAST row whose key equals it (the JAX merge probe's rule, which the
-    sentinel-collision fix relies on); row is 0 where hit is False.
-    `keys_ordered` are the sorted keys with bit 63 flipped, which turns
-    their unsigned order into searchsorted's signed one, so ids >= 2^63
-    (k=31 wraps) order and match correctly."""
-    qs = q ^ SIGN_BIT
-    row = torch.searchsorted(keys_ordered, qs, right=True) - 1
-    rowc = row.clamp_min(0)
-    return rowc, (row >= 0) & (keys_ordered[rowc] == qs)
-
-
 def _ranges(kmers, counts, keys_ordered, offsets, *, cfg: MapConfig):
     """Each (k-mer, bucket) query's CSR range in one index: (start, lens)
     (B, J) int32, both zero on a miss and for zero-count k-mers."""
@@ -114,40 +106,6 @@ def _probe_hist(kmers, counts, dev, hist, *, cfg: MapConfig):
     valid = hit & (counts > 0)[:, None]
     h = torch.where(valid if hist.dim() == 1 else valid[..., None], hist[rowc], 0)
     return h, torch.where(hit, dev.offsets[rowc], 0)
-
-
-def _hist_bytes(h: torch.Tensor) -> torch.Tensor:
-    """(B, J) or (B, J, W) histogram words -> (B, J, bytes) uint8: genome g's
-    count is byte g (little-endian words, 8 genomes a word)."""
-    return (h[..., None] if h.dim() == 2 else h).view(torch.uint8)
-
-
-def _hist_hits(h: torch.Tensor, G: int) -> torch.Tensor:
-    """Histogram words -> (B, G) int32 posting hits: the bytes summed over J."""
-    return _hist_bytes(h).sum(dim=1, dtype=torch.int32)[:, :G]
-
-
-def classify_tallies(hits: torch.Tensor, valid_kmer: torch.Tensor, nb: int) -> torch.Tensor:
-    """Perfect / variant / unique-perfect counts per genome, (G, 3) int32
-    (call.rs:1390-1418). Duplicate postings within a genome can push hits
-    past nb; such a k-mer counts as 'variant', as in the reference."""
-    valid = valid_kmer[:, None]
-    perfect = (hits == nb) & valid
-    variant = (hits > 0) & (hits != nb) & valid
-    unique = perfect & (perfect.sum(dim=1, keepdim=True) == 1)
-    return torch.stack(
-        [perfect.sum(dim=0), variant.sum(dim=0), unique.sum(dim=0)], dim=1
-    ).to(torch.int32)
-
-
-def _walk(startf: torch.Tensor, lensf: torch.Tensor, n_lanes: int):
-    """Exact posting walk: lane l of row r reads posting startf[r] + l -
-    (the lanes of the rows before r). Returns (row (n_lanes,) of lensf's
-    dtype, posting index (n_lanes,) int64); n_lanes must be lensf's sum."""
-    own = torch.repeat_interleave(lensf, output_size=n_lanes)
-    first_lane = torch.cumsum(lensf, dim=0) - lensf
-    lane = torch.arange(n_lanes, dtype=torch.int64, device=lensf.device)
-    return own, startf[own] + (lane - first_lane[own])
 
 
 def _row_chunks(lensf: torch.Tensor, lane_chunk: int):
@@ -197,36 +155,56 @@ def _tally_batches(batches, cfg: MapConfig, hits_of, device):
     return tallies, lanes_t
 
 
+def _tally_word(batches, dev, cfg: MapConfig):
+    """Pass 1 on the single-word histogram: K1, then kernel (b) a batch.
+    Returns (tallies, lanes, saved) as tally_save does."""
+    G = cfg.num_genomes
+    tallies = torch.zeros((G, 3), dtype=torch.int32, device=dev.device)
+    lanes, saved = [], []
+    for kmers, counts in batches:
+        q, _, _ = _bucket_q(kmers, cfg=cfg)
+        start, h, batch_lanes = probe_tally(q, counts, dev.keys_ordered, dev.offsets,
+                                            dev.hist, tallies)
+        saved.append((start, h))
+        lanes.append(batch_lanes)
+    lanes_t = (torch.stack(lanes) if lanes
+               else torch.zeros((0, G), dtype=torch.int64, device=dev.device))
+    return tallies, lanes_t, saved
+
+
 def tally(batches, dev, cfg: MapConfig, mode: str, lane_chunk: int = FLAT_LANE_CHUNK):
     """Pass 1 without a saved probe over `batches`, a sequence of (kmers
     (B,) int64, counts (B,) int32) pairs; zero counts mark padding. mode:
-    'hist' (single-word histogram), 'words' (multi-word) or 'flat' (every
-    posting, in runs of at most `lane_chunk` lanes plus one bucket).
+    'hist' (single-word histogram: kernel (b)), 'words' (multi-word) or
+    'flat' (every posting, in runs of at most `lane_chunk` lanes plus one
+    bucket).
 
     Returns (tallies (G, 3) int32, lanes (nb, G) int64): lanes[i, g] is
     the number of postings of genome g that batch i's hits cover — the
     exact length of its pass-2 walk."""
+    if mode == "hist":
+        return _tally_word(batches, dev, cfg)[:2]
     if mode == "flat":
         def hits_of(kmers, counts):
             return _flat_hits(kmers, counts, dev, cfg=cfg, lane_chunk=lane_chunk)
     else:
-        hist = {"hist": dev.hist, "words": dev.hist_words}[mode]
-
         def hits_of(kmers, counts):
-            h, _ = _probe_hist(kmers, counts, dev, hist, cfg=cfg)
+            h, _ = _probe_hist(kmers, counts, dev, dev.hist_words, cfg=cfg)
             return _hist_hits(h, cfg.num_genomes)
     return _tally_batches(batches, cfg, hits_of, dev.device)
 
 
 def tally_save(batches, dev, cfg: MapConfig):
-    """Pass 1 with the saved probe: the single-word histogram, else the
-    multi-word one. Returns (tallies, lanes) as `tally` does, and saved[i]
-    = (start (B, J) int32, h (B, J) or (B, J, W)), batch i's probe."""
-    hist = dev.hist if dev.hist is not None else dev.hist_words
+    """Pass 1 with the saved probe: the single-word histogram (kernel (b)),
+    else the multi-word one. Returns (tallies, lanes) as `tally` does, and
+    saved[i] = (start (B, J) int32, h (B, J) or (B, J, W)), batch i's
+    probe."""
+    if dev.hist is not None:
+        return _tally_word(batches, dev, cfg)
     saved = []
 
     def hits_of(kmers, counts):
-        h, start = _probe_hist(kmers, counts, dev, hist, cfg=cfg)
+        h, start = _probe_hist(kmers, counts, dev, dev.hist_words, cfg=cfg)
         saved.append((start, h))
         return _hist_hits(h, cfg.num_genomes)
     tallies, lanes = _tally_batches(batches, cfg, hits_of, dev.device)
@@ -238,81 +216,102 @@ def _fold_table(kmers: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tens
     return fold_table(kmers, counts, k)
 
 
-def _walk_scatter(flat, pc, startf, lensf, n_lanes: int, postings, *, J: int, k: int,
-                  row_len: int, file_base: int):
-    """Walk the (k-mer, bucket) rows' posting ranges and scatter into the
-    flat pileup: max of the k-mer count into the depth planes, +1 into the
-    count planes. int32 postings are genome-local lpos<<6 | canon<<5 |
-    idx; int64 ones are pos<<22 | meta, pos shifted by -file_base into
-    the genome's local space (JAX _scatter_lanes). Returns each lane's
-    (row, posting)."""
-    own, at = _walk(startf, lensf, n_lanes)
-    post = postings[at]
-    if post.dtype == torch.int32:
-        pos, meta = post >> 6, post & 63
-    else:
-        pos, meta = (post >> 22) - file_base, post & 0x3FFFFF
-    idx = meta & 31
-    is_canon = (meta >> 5) & 1
-    v = pc[(own // J) * k + idx]  # mirror bits hold the k-1-idx complement
-    base = torch.where(is_canon == 1, (v >> 2) & 3, v & 3)
-    fwd = is_canon == ((v >> 4) & 1)
-    cell = pos.to(torch.int64) * 4 + base
-    depth_at = torch.where(fwd, PLANE_DEPTH_FWD * row_len, PLANE_DEPTH_REV * row_len) + cell
-    cnt_at = torch.where(fwd, PLANE_CNT_FWD * row_len, PLANE_CNT_REV * row_len) + cell
-    flat.scatter_reduce_(0, depth_at, v >> 5, reduce="amax")
-    flat.index_add_(0, cnt_at, torch.ones_like(v))
-    return own, post
+def _genome_scalar(value: int, device) -> torch.Tensor:
+    """(1,) int64 holding `value` on `device`, written there by a fill (no
+    host copy, so no sync)."""
+    return torch.full((1,), value, dtype=torch.int64, device=device)
 
 
 def pileup_from_saved(batches, saved, lanes, postings: torch.Tensor,
                       best: int, cfg: MapConfig, total_len: int,
                       file_base: int = 0) -> torch.Tensor:
     """Pass 2 for genome `best` from pass 1's saved probe: the (4,
-    total_len+1, 4) int32 pileup in the genome's local coordinates.
-    Genome `best`'s range in a bucket starts after the postings of the
-    genomes below it (postings grouped by genome), so its length is its
-    histogram byte and its offset the sum of the bytes below. `lanes[i]`
-    (a host int) is batch i's walk length for `best`; `postings` are the
-    int32 genome-local postings, or the int64 global ones with
+    total_len+1, 4) int32 pileup in the genome's local coordinates, K2
+    and kernel (c) a batch. Genome `best`'s range in a bucket starts after
+    the postings of the genomes below it (postings grouped by genome), so
+    its length is its histogram byte and its offset the sum of the bytes
+    below: (c) derives both from a single word itself, the multi-word
+    ones in torch. `lanes` (host ints, or None) only skips the batches
+    whose walk for `best` is empty; nothing is sized by it. `postings`
+    are the int32 genome-local postings, or the int64 global ones with
     `file_base` the genome's global offset."""
-    k, J = cfg.k, len(cfg.positions)
-    row_len = (total_len + 1) * 4
-    flat = torch.zeros(4 * row_len, dtype=torch.int32, device=postings.device)
-    for (kmers, counts), (start, h), n_lanes in zip(batches, saved, lanes):
-        if int(n_lanes) == 0:
+    device = postings.device
+    pileup = torch.zeros((4, total_len + 1, 4), dtype=torch.int32, device=device)
+    best_t = base_t = None
+    if postings.dtype == torch.int64:
+        base_t = _genome_scalar(file_base, device)
+    for i, ((kmers, counts), (start, h)) in enumerate(zip(batches, saved)):
+        if lanes is not None and int(lanes[i]) == 0:
             continue
-        hb = _hist_bytes(h)
-        lens = hb[..., best].to(torch.int32)
-        prefix = hb[..., :best].sum(dim=-1, dtype=torch.int32)
-        _walk_scatter(flat, _fold_table(kmers, counts, k), (start + prefix).reshape(-1),
-                      lens.reshape(-1), int(n_lanes), postings, J=J, k=k,
-                      row_len=row_len, file_base=file_base)
-    return flat.reshape(4, total_len + 1, 4)
+        pc = _fold_table(kmers, counts, cfg.k)
+        if h.dim() == 2:
+            if best_t is None:
+                best_t = _genome_scalar(best, device)
+            walk_scatter(pileup, pc, start, postings, k=cfg.k, h=h, best=best_t,
+                         file_base=base_t)
+        else:
+            hb = _hist_bytes(h)
+            walk_scatter(pileup, pc, start + hb[..., :best].sum(dim=-1, dtype=torch.int32),
+                         postings, k=cfg.k, lens=hb[..., best].to(torch.int32),
+                         file_base=base_t)
+    return pileup
 
 
 def pileup_from_subindex(batches, sub, lanes, cfg: MapConfig,
                          total_len: int) -> torch.Tensor:
     """Pass 2 through the selected genome's sub-index `sub` (layout
     SubIndex): K1 queries probed over its keys (the last equal row), each
-    hit's range walked in its genome-local postings. `lanes[i]` (a host
-    int) is batch i's walk length for the genome, as pass 1 counted it;
-    with lanes None each batch's comes from its own probe (one host sync
-    a batch), as a rank of the mesh walks k-mers pass 1 did not count."""
-    k, J = cfg.k, len(cfg.positions)
-    row_len = (total_len + 1) * 4
-    flat = torch.zeros(4 * row_len, dtype=torch.int32, device=sub.postings.device)
+    hit's range walked in its genome-local postings by kernel (c).
+    `lanes[i]` (a host int) skips batch i where pass 1 counted no walk
+    for the genome; with lanes None every batch is walked, as a rank of
+    the mesh walks k-mers pass 1 did not count. No host sync."""
+    pileup = torch.zeros((4, total_len + 1, 4), dtype=torch.int32,
+                         device=sub.postings.device)
     for i, (kmers, counts) in enumerate(batches):
         if lanes is not None and int(lanes[i]) == 0:
             continue
         start, lens = _ranges(kmers, counts, sub.keys_ordered, sub.offsets, cfg=cfg)
-        n_lanes = int(lens.sum() if lanes is None else lanes[i])
-        if n_lanes == 0:
-            continue
-        _walk_scatter(flat, _fold_table(kmers, counts, k), start.reshape(-1),
-                      lens.reshape(-1), n_lanes, sub.postings, J=J, k=k,
-                      row_len=row_len, file_base=0)
-    return flat.reshape(4, total_len + 1, 4)
+        walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, sub.postings,
+                     k=cfg.k, lens=lens)
+    return pileup
+
+
+def pick_best_device(tallies: torch.Tensor, glen2: torch.Tensor) -> torch.Tensor:
+    """The host's pick (engine.pick_best_genome) on the device, as JAX's
+    _pick_best_device (map.py:774-788): perfect / (2*glen) in f64 —
+    equal to the host's perfect/glen/2 since halving is exact — with -1
+    for a genome of length 0, and the first maximum (torch.argmax's rule
+    for ties). Returns (1,) int64. Where no score is positive the host
+    pick finds none and the sample fails there."""
+    scores = torch.where(glen2 > 0, tallies[:, 0].to(torch.float64)
+                         / glen2.clamp_min(1).to(torch.float64), -1.0)
+    return scores.argmax().reshape(1)
+
+
+def map_fused(batches, dev, cfg: MapConfig, glen2: torch.Tensor, file_bases: torch.Tensor,
+              after_pass1: Callable[[], None] | None = None):
+    """Both passes and the genome pick in one enqueue, JAX's map_fused_jit
+    (map.py:829-867) on the single-word histogram: K1 and kernel (b) a
+    batch, the device pick, K2 and kernel (c) a batch. The walk is exact,
+    so JAX's static lane budget and its overflow flag have no counterpart.
+    `after_pass1` is called once pass 1 is enqueued (the engine's stage
+    mark). Returns (tallies (G, 3) int32, lanes (nb, G) int64, best (1,)
+    int64, saved, pileup), all on the device, with no host sync."""
+    if dev.hist is None:
+        raise ValueError("map_fused needs the single-word histogram")
+    tallies, lanes, saved = _tally_word(batches, dev, cfg)
+    if after_pass1 is not None:
+        after_pass1()
+    best = pick_best_device(tallies, glen2)
+    # K2 and kernel (c)'s saved-probe entry a batch read the pick on the
+    # device, and file_bases at it for int64 postings
+    postings = dev.pass2_postings()
+    base = file_bases if postings.dtype == torch.int64 else None
+    pileup = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
+    for (kmers, counts), (start, h) in zip(batches, saved):
+        walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, postings, k=cfg.k,
+                     h=h, best=best, file_base=base)
+    return tallies, lanes, best, saved, pileup
 
 
 def probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup, *, cfg: MapConfig):

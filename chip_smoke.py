@@ -48,8 +48,9 @@ Phases, one line each; any failure exits non-zero:
      the count workers) equal the host counter's files; cohort wall
      seconds and samples per hour with 1 and 2 count workers in turns,
      beside the single-sample totals and the host's core count;
- 10. profile: one sample with `--profile-dir`: the trace names K1's and
-     K2's kernels, and the outputs equal the run without it;
+ 10. profile: one sample with `--profile-dir`: the trace names K1's, K2's,
+     (b)'s and (c)'s kernels (and counts torch's searchsorted and
+     repeat_interleave ops), and the outputs equal the run without it;
  11. device build: the index built on the card (`--device-build on`) against the
      host build + layout (`off`) for the fixture's 4 genomes and the
      32-strain panel: every DeviceIndex tensor equal, medians of 5 of each
@@ -87,8 +88,29 @@ Phases, one line each; any failure exits non-zero:
      their classic cohort; the auto gate's decision and round trip on the
      card; warm totals of both paths in turns, medians (q1, q3) of
      max(N, 9) each;
- 16. the script's own wall time, the kernels line, the card's name and
+ 16. fused: the fused single enqueue (PendingFused: pass 1, the genome
+     pick on the card and pass 2 with no host sync between them), which
+     every sample on the single histogram word takes: s0-s2 through
+     run_call, all ('hist', 'fused'), equal (tallies, genome, pileup,
+     files) to the same cohort two-pass (PROBE_BYTES_CAP at 1 byte:
+     ('hist', 'subindex')) and to the fused CPU run, with K1, (b), K2 and
+     (c) launched once a batch; s0 enqueued fused under
+     torch.cuda.set_sync_debug_mode('error'), its wall stages and the
+     card's own between events; kernels (b) probe_tally and (c)
+     walk_scatter against their plain versions at s0's batch (B =
+     152,679, J = 16, 2,509,920 keys): (b) on the fixture's words and on
+     int64 words of 8 genomes with bit 63 set, (c) on the int32 postings
+     and on the int64 global ones with the file base read on the card,
+     each timed with its byte bound (torch.searchsorted alone beside
+     (b)); warm totals of a lone s0 fused and two-pass, max(N, 9) each in
+     turns;
+ 17. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
+
+The main path (phase 5) takes the fused PendingFused, as every sample on
+the fixture's index (the single histogram word, a probe under
+PROBE_BYTES_CAP) does; its stage line gives the wall stages and the
+card's own between events.
 """
 
 from __future__ import annotations
@@ -109,7 +131,7 @@ import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
-from contextlib import contextmanager  # noqa: E402
+from contextlib import contextmanager, nullcontext  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -122,7 +144,7 @@ from bronko_tpu_torch.index.device_build import build_device_index_on_device  # 
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.index.store import load_index  # noqa: E402
 from bronko_tpu_torch.io import native  # noqa: E402
-from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib  # noqa: E402
+from bronko_tpu_torch.ops import count, cuda_buckets, cuda_gather, cuda_lib, cuda_map  # noqa: E402
 from bronko_tpu_torch.ops import map as tmap  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
@@ -161,6 +183,7 @@ PANEL_REPS = 5
 MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
 STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
+FUSED_WARM = 9  # warm runs of each path in the fused phase, at least
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -171,6 +194,12 @@ KERNELS = {  # name: (TPU kernel it replaces, source)
                      "bronko_tpu_torch/csrc/count_kernels.cu"),
     "gather": ("tests/profile_gather.py:46",
                "bronko_tpu_torch/csrc/gather_kernel.cu"),
+    # (b) and (c) fuse XLA work of the JAX mapper and replace no Pallas
+    # kernel: `replaces` names the JAX function they take the place of
+    "probe_tally": ("bronko_tpu/ops/map.py:666",
+                    "bronko_tpu_torch/csrc/map_kernels.cu"),
+    "walk_scatter": ("bronko_tpu/ops/map.py:899",
+                     "bronko_tpu_torch/csrc/map_kernels.cu"),
 }
 
 
@@ -468,8 +497,9 @@ def read_outputs(out: str) -> dict[str, bytes]:
 def stage_line(tag: str, res, smi: str) -> str:
     total = sum(res.seconds.values())
     stages = ", ".join(f"{s} {v:.4f}" for s, v in res.seconds.items())
+    card = "".join(f"; the card's own {s} {v:.6f}" for s, v in res.device_seconds.items())
     return (f"[{tag}] seconds: {stages}; total {total:.4f} -> "
-            f"{res.reads / total:.0f} reads/s ({res.reads} reads; {smi})")
+            f"{res.reads / total:.0f} reads/s ({res.reads} reads{card}; {smi})")
 
 
 def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
@@ -812,14 +842,18 @@ def phase_profile(db: str, fastq: str, work: str, smi: str) -> None:
         trace = json.load(fh)
     kernels = {e.get("name", "") for e in trace.get("traceEvents", [])
                if e.get("cat") == "kernel"}
-    for name in ("bucket_queries_kernel", "fold_table_kernel"):
+    for name in ("bucket_queries_kernel", "fold_table_kernel", "probe_tally_kernel",
+                 "walk_scatter_kernel"):
         if not any(name in k for k in kernels):
             fail("profile", f"the trace names no {name} among {len(kernels)} kernels")
     if read_outputs(out) != read_outputs(os.path.join(work, f"single_{stem(fastq)}")):
         fail("profile", "the profiled run's files differ from the run without the profiler")
+    ops = {name: sum(e.get("name") == name for e in trace["traceEvents"])
+           for name in ("aten::searchsorted", "aten::repeat_interleave")}
     print(f"[profile] {traces[0]}: {len(trace['traceEvents'])} events, {len(kernels)} kernel "
-          f"names, K1 and K2 among them; files equal the run without the profiler; the "
-          f"profiled call took {took:.4f}s ({smi})", flush=True)
+          f"names, K1, K2, (b) and (c) among them; torch ops of the old probe and walk "
+          f"{ops}; files equal the run without the profiler; the profiled call took "
+          f"{took:.4f}s ({smi})", flush=True)
 
 
 def same_index(got, want) -> list[str]:
@@ -1249,7 +1283,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
         res_s, launches = drive(lambda: run_call(db, fastq, out_s, None, "host"))
     with stream_env(BRONKO_NO_STREAM="1"):
         res_c = run_call(db, fastq, out_c, None, "host")
-    if (res_s.path, res_c.path) != (("hist", "streamed"), ("hist", "saved")):
+    if (res_s.path, res_c.path) != (("hist", "streamed"), ("hist", "fused")):
         fail("stream", f"paths {res_s.path} (BRONKO_STREAM=1), {res_c.path} (BRONKO_NO_STREAM=1)")
     kernels_ran(launches, len(nonempty), len(nonempty), "s0 streamed")
     same_as(res_s, res_c, out_s, out_c, "s0 streamed against classic")
@@ -1298,7 +1332,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     if not isinstance(cohort, list) or not isinstance(classic, list):
         fail("stream", f"a cohort run failed: exit {cohort}, {classic}")
     paths = [r.path for r in cohort]
-    if paths != [("hist", "streamed")] + [("hist", "saved")] * (len(fastqs) - 1):
+    if paths != [("hist", "streamed")] + [("hist", "fused")] * (len(fastqs) - 1):
         fail("stream", f"the cohort's paths with BRONKO_STREAM_FIRST=1: {paths}")
     if read_outputs(outs["first"]) != read_outputs(outs["classic"]):
         fail("stream", "the cohort with its first sample streamed writes other files")
@@ -1335,6 +1369,197 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     print(f"[stream] warm median streamed / classic = {med['streamed'] / med['classic']:.4f} "
           f"({smi})", flush=True)
     return launches
+
+
+def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
+    """Kernels (b) and (c) against their plain versions at one sample's
+    batch on the fixture's index: (b) on its own histogram and on int64
+    words of 8 genomes with bit 63 set; (c) from the saved probe on the
+    int32 postings and on the int64 global ones read at genome `best`'s
+    file base. Returns each one's row of the kernels line (its numbers at
+    the fixture's own words and postings)."""
+    kmers, counts = batch
+    k = dev.k
+    positions = tuple(filtered_bucket_positions(k, 2, False))
+    q, _, _ = cuda_buckets.bucket_queries(kmers, k, positions)
+    rng = np.random.default_rng(SEED + 11)
+    hist8 = torch.from_numpy(rng.integers(0, 1 << 63, size=dev.hist.shape[0], dtype=np.int64)
+                             | np.int64(-(1 << 63))).to(CARD)
+    rows = {name: {"max_abs_err": 0.0, "library_ms": None}
+            for name in ("probe_tally", "walk_scatter")}
+    G = dev.num_genomes
+    saved = None
+    for label, hist in ((f"G={G} {dev.hist.dtype} words", dev.hist),
+                        ("G=8 int64 words, bit 63 set", hist8)):
+        g = G if hist is dev.hist else 8
+        tallies = torch.zeros((g, 3), dtype=torch.int32, device=CARD)
+        args = (q, counts, dev.keys_ordered, dev.offsets, hist)
+        got = cuda_map.probe_tally(*args, tallies)
+        want_tallies = torch.zeros_like(tallies)
+        want = cuda_map.probe_tally_plain(*args, want_tallies)
+        err = max_abs_err((*got, tallies), (*want, want_tallies))
+        torch.cuda.synchronize()
+        rows["probe_tally"]["max_abs_err"] = max(rows["probe_tally"]["max_abs_err"], err)
+        if err != 0.0:
+            fail("fused", f"probe_tally differs from its plain version at {label}")
+        scratch = torch.zeros_like(tallies)
+        out = {"ms": median_ms(lambda: cuda_map.probe_tally(*args, scratch)),
+               "plain_ms": median_ms(lambda: cuda_map.probe_tally_plain(*args, scratch)),
+               "bound_ms": bound_ms((q, counts, dev.keys_ordered, dev.offsets, hist),
+                                    (*got, tallies))}
+        print(f"[fused] probe_tally B={q.shape[0]} J={q.shape[1]} U={dev.keys.shape[0]} "
+              f"{label}: equal; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+              f"bound {out['bound_ms']:.4f} ms (share {out['bound_ms'] / out['ms']:.3f}; "
+              f"{smi})", flush=True)
+        if hist is dev.hist:
+            qs = q ^ tmap.SIGN_BIT
+            out["library_ms"] = median_ms(
+                lambda: torch.searchsorted(dev.keys_ordered, qs, right=True))
+            print(f"[fused] torch.searchsorted alone on the same queries: "
+                  f"{out['library_ms']:.4f} ms ({smi})", flush=True)
+            rows["probe_tally"].update(out)
+            saved, lanes = got[:2], got[2]
+
+    start, h = saved
+    pc = cuda_buckets.fold_table(kmers, counts, k)
+    best_t = torch.full((1,), best, dtype=torch.int64, device=CARD)
+    n_lanes = int(lanes[best])
+    for label, postings, base in (
+            ("int32 postings", dev.pass2_postings(), None),
+            ("int64 global postings, file base on the card", dev.global_postings(),
+             dev.file_bases_t())):
+        def walk(fn, pileup):
+            fn(pileup, pc, start, postings, k=k, h=h, best=best_t, file_base=base)
+            return pileup
+
+        empty = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=CARD)
+        got = walk(cuda_map.walk_scatter, empty.clone())
+        err = max_abs_err((got,), (walk(cuda_map.walk_scatter_plain, empty.clone()),))
+        torch.cuda.synchronize()
+        rows["walk_scatter"]["max_abs_err"] = max(rows["walk_scatter"]["max_abs_err"], err)
+        if err != 0.0 or int(got[2:].sum()) != n_lanes:
+            fail("fused", f"walk_scatter differs from its plain version with {label}")
+        scratch = empty.clone()
+        # each input read once, the walked postings alone, the pileup written once
+        nbytes = (sum(t.numel() * t.element_size() for t in (pc, start, h, best_t, got))
+                  + n_lanes * postings.element_size())
+        out = {"ms": median_ms(lambda: walk(cuda_map.walk_scatter, scratch)),
+               "plain_ms": median_ms(lambda: walk(cuda_map.walk_scatter_plain, scratch)),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        print(f"[fused] walk_scatter B={kmers.shape[0]} J={start.shape[1]} {n_lanes} lanes "
+              f"for genome {best}, {label}: equal; kernel {out['ms']:.4f} ms, plain "
+              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms (share "
+              f"{out['bound_ms'] / out['ms']:.3f}; {smi})", flush=True)
+        if base is None:
+            rows["walk_scatter"].update(out)
+    return rows
+
+
+@contextmanager
+def two_pass():
+    """PROBE_BYTES_CAP at 1 byte for the duration: no sample saves its
+    probe, so each takes the two-pass path ('hist', 'subindex': pass 1,
+    the host's pick, pass 2 through the genome's sub-index), the one the
+    single histogram word takes past the cap."""
+    cap, engine.PROBE_BYTES_CAP = engine.PROBE_BYTES_CAP, 1
+    try:
+        yield
+    finally:
+        engine.PROBE_BYTES_CAP = cap
+
+
+def phase_fused(db: str, fastqs: list[str], work: str, warm: int, smi: str):
+    """The fused single enqueue (PendingFused), which every sample on the
+    single histogram word takes: s0-s2 through run_call on the card, all
+    ('hist', 'fused'), against the same cohort two-pass on the card
+    ('hist', 'subindex') and the fused run on the CPU; one fused sample
+    enqueued under torch.cuda.set_sync_debug_mode('error'); kernels (b)
+    and (c) against their plain versions at s0's batch; warm totals of a
+    lone s0, fused and two-pass, in turns. Returns ((b) and (c)'s kernel
+    rows, the fused cohort's launches)."""
+    index = load_index(db)
+
+    def cohort(device, out):
+        dev = build_device_index(index, device)
+        cfg = call_args(db, fastqs, os.path.join(work, out), "host")
+        return engine.run_call(cfg, index, dev), dev
+
+    (fused, dev_f), launches = drive(lambda: cohort(CARD, "fused_gpu"))
+    with two_pass():
+        two_pass_res, _ = cohort(CARD, "fused_two_pass")
+    cpu, _ = cohort(torch.device("cpu"), "fused_cpu")
+    for name, res, path in (("card, fused", fused, "fused"),
+                            ("card, two-pass", two_pass_res, "subindex"),
+                            ("CPU, fused", cpu, "fused")):
+        if [r.path for r in res] != [("hist", path)] * len(fastqs):
+            fail("fused", f"{name}: paths {[r.path for r in res]}")
+    for res in (two_pass_res, cpu):
+        for a, b in zip(fused, res):
+            if (a.best != b.best or not np.array_equal(a.tallies, b.tallies)
+                    or not np.array_equal(a.pileup, b.pileup)):
+                fail("fused", f"{a.summary.filename}: tallies, genome or pileup differ")
+    files = read_outputs(os.path.join(work, "fused_gpu"))
+    if (files != read_outputs(os.path.join(work, "fused_two_pass"))
+            or files != read_outputs(os.path.join(work, "fused_cpu"))):
+        fail("fused", "the fused cohort's files differ from the two-pass or the CPU run's")
+    cfg = call_args(db, fastqs[0], work, "host")
+    n_batches = sum(-(-(r.summary.n_perfect + r.summary.n_variant + r.summary.n_unmapped)
+                      // cfg.batch_size) for r in fused)
+    per_batch = [launches[n] for n in ("bucket_queries", "probe_tally", "fold_table",
+                                       "walk_scatter")]
+    if per_batch != [n_batches] * 4 or launches["pack_windows"] or launches["gather"]:
+        fail("fused", f"launches {launches}, expected K1, (b), K2 and (c) {n_batches} each")
+    print(f"[fused] {len(fastqs)} samples on a fresh DeviceIndex: paths ('hist', 'fused'); "
+          f"tallies, genome {fused[0].best}, pileups and {len(files)} files equal the two-pass "
+          f"card run and the fused CPU run; launches {launches} (K1, (b), K2 and (c) once "
+          f"each a batch); {stage_line('fused s0', fused[0], smi)}", flush=True)
+
+    counted = engine._count_job([fastqs[0]], cfg, index.k, CARD, upload=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pending = engine._map_one(counted, index, dev_f, cfg)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not isinstance(pending, engine.PendingFused):
+        fail("fused", f"s0 on the single histogram word took {type(pending).__name__}")
+    mapped = pending.resolve(index, dev_f)
+    if (mapped.best != fused[0].best or not np.array_equal(mapped.tallies, fused[0].tallies)
+            or not np.array_equal(mapped.pileup, fused[0].pileup)):
+        fail("fused", "the sample enqueued under the sync check differs from the cohort's")
+    card = ", ".join(f"{s} {v:.6f}" for s, v in mapped.device_seconds.items())
+    wall = ", ".join(f"{s} {mapped.seconds[s]:.6f}" for s in ("pass1", "pass2", "d2h"))
+    print(f"[fused] s0 enqueued under set_sync_debug_mode('error'): no sync, enqueue "
+          f"{enqueue_s:.6f}s; resolved equal to the cohort's s0; wall stages {wall}; the "
+          f"card's own between events {card} s ({smi})", flush=True)
+
+    rows = _fused_kernel_rows(dev_f, counted.batches[0], fused[0].best, smi)
+
+    n = max(warm, FUSED_WARM)
+    devs = {"fused": build_device_index(index, CARD), "two-pass": build_device_index(index, CARD)}
+    runs = {name: [] for name in devs}
+    for i in range(n):
+        for name in ("fused", "two-pass") if i % 2 == 0 else ("two-pass", "fused"):
+            with two_pass() if name == "two-pass" else nullcontext():
+                (res,) = engine.run_call(
+                    call_args(db, fastqs[0], os.path.join(work, f"fused_warm_{name}"), "host"),
+                    index, devs[name])
+            runs[name].append(res)
+    med = {}
+    for name, results in runs.items():
+        if {r.path for r in results} != {("hist", "fused" if name == "fused" else "subindex")}:
+            fail("fused", f"warm {name} runs took {sorted({r.path for r in results})}")
+        q1, med[name], q3 = statistics.quantiles([sum(r.seconds.values()) for r in results], n=4)
+        stages = ", ".join(f"{s} {statistics.median(r.seconds[s] for r in results):.6f}"
+                           for s in engine.STAGES)
+        print(f"[fused warm {name}] s0 alone, median (q1, q3) of {n}, in turns: total "
+              f"{med[name]:.6f} ({q1:.6f}, {q3:.6f}) -> {results[0].reads / med[name]:.0f} "
+              f"reads/s; stage medians {stages} ({smi})", flush=True)
+    print(f"[fused] warm median fused / two-pass = {med['fused'] / med['two-pass']:.4f} "
+          f"({smi})", flush=True)
+    return rows, launches
 
 
 def main() -> int:
@@ -1391,7 +1616,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     print(stage_line("main", res, smi), flush=True)
     print(f"[main] launches {launches}; peak device memory {peak} bytes "
           f"({peak / 2**20:.1f} MiB; {smi})", flush=True)
-    missing = [n for n in ("bucket_queries", "fold_table") if launches[n] == 0]
+    missing = [n for n in ("bucket_queries", "probe_tally", "fold_table", "walk_scatter")
+               if launches[n] == 0]
     if missing:
         fail("main", f"kernels never launched on the main path: {missing}")
 
@@ -1424,15 +1650,18 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
     stream_launches = phase_stream(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs,
                                    work, ref, panel_res, args.warm, smi)
+    with stream_env(BRONKO_NO_STREAM="1"):
+        fused_rows, fused_launches = phase_fused(db + ".bkdb", fastqs, work, args.warm, smi)
+    rows.update(fused_rows)
 
-    # each kernel's launches on its own path: K1 and K2 on the main path,
-    # K3 on the device counter's, K4 on the gather probe's
+    # each kernel's launches on its own path: K1, (b), K2 and (c) on the
+    # main path, K3 on the device counter's, K4 on the gather probe's
     launches["pack_windows"] = count_launches["pack_windows"]
     launches["gather"] = rows["gather"]["launches"]
     print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
-          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}",
-          flush=True)
+          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; fused "
+          f"cohort {fused_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

@@ -1,6 +1,7 @@
-"""Kernels K1-K4, the port's main path (with the host and the device
-counter), the streamed single-sample path, the index built on the card
-and a device-counter cohort on two count workers, on a CUDA card, against
+"""Kernels K1-K4, (b) probe_tally and (c) walk_scatter, the port's main
+path (with the host and the device counter), the streamed single-sample
+path, the index built on the card, a device-counter cohort on two count
+workers and a cohort of fused samples, on a CUDA card, against
 the plain PyTorch versions on the same card, the host layout and the CPU
 run. Skipped without a card; on
 one: python -m pytest tests/test_torch_cuda.py -m cuda"""
@@ -21,7 +22,8 @@ from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.index.model import BronkoIndex  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
-from bronko_tpu_torch.ops import count, cuda_gather  # noqa: E402
+from bronko_tpu_torch.call import engine  # noqa: E402
+from bronko_tpu_torch.ops import count, cuda_gather, cuda_map  # noqa: E402
 from bronko_tpu_torch.ops import cuda_buckets as cb, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 # plain module name (pytest puts tests/ on sys.path): an installed package
@@ -331,7 +333,7 @@ def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, ca
         torch.cuda.synchronize()
         launches[name] = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
     assert results["gpu"].path == results["cpu"].path == ("hist", "streamed")
-    assert results["gpu_classic"].path == ("hist", "saved" if cap == "default" else "subindex")
+    assert results["gpu_classic"].path == ("hist", "fused" if cap == "default" else "subindex")
     batches = sum(-(-n // 1024) for n in parts)
     assert launches["gpu"]["bucket_queries"] >= batches > len(parts)
     assert launches["gpu"]["fold_table"] >= 1
@@ -434,3 +436,197 @@ def test_device_counter_cohort_on_two_workers_equals_the_cpu(gpu, tmp_path, monk
         outs[name] = {f: open(tmp_path / name / f, "rb").read()
                       for f in sorted(os.listdir(tmp_path / name))}
     assert len(outs["gpu"]) == 7 and outs["gpu"] == outs["cpu"]
+
+
+def _probe_inputs(case, device, seed, B=20_011, J=16, U=5_000):
+    """Sorted unique keys (bit 63 flipped, the last one 2^64-1), CSR starts,
+    histogram words (int32 at G = 4, int64 with bit 63 set at G = 8), and
+    (B, J) queries of which about half hit, the first k-mers perfect for
+    some genomes, with a quarter of the counts 0."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, 1 << 64, size=U, dtype=np.uint64, endpoint=False))
+    keys[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    U = keys.shape[0]
+    offsets = np.concatenate([[0], np.cumsum(rng.integers(0, 256, U))]).astype(np.int32)
+    G = 8 if case == "g8_signbit" else 4
+    hist = rng.integers(0, 1 << 63, size=U, dtype=np.int64) | np.int64(-(1 << 63))
+    if G == 4:
+        hist = (hist & 0x7F7F7F7F).astype(np.int32)
+    B = 0 if case == "empty" else B
+    q = np.where(rng.random((B, J)) < 0.5, keys[rng.integers(0, U, (B, J))],
+                 rng.integers(0, 1 << 64, size=(B, J), dtype=np.uint64, endpoint=False))
+    # k-mers whose J queries all hit one key whose bytes are 0 or 1: hits
+    # of J (perfect; unique where one genome has it) or 0
+    special = rng.integers(0, U, size=min(B, 100))
+    hist[special] = ((rng.random((special.shape[0], G)) < 0.4)
+                     << (8 * np.arange(G))).sum(axis=1).astype(hist.dtype)
+    q[:special.shape[0]] = keys[special][:, None]
+    q[: min(B, 7), 0] = keys[-1]
+    counts = rng.integers(1, 1000, size=B).astype(np.int32)
+    if case == "zero_counts":
+        counts[rng.random(B) < 0.25] = 0
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    tallies = to(rng.integers(0, 100, size=(G, 3)).astype(np.int32))
+    return (from_u64(q.reshape(-1), device).reshape(B, J), to(counts),
+            from_u64(keys, device) ^ cuda_map.SIGN_BIT, to(offsets), to(hist), tallies)
+
+
+@pytest.mark.parametrize("case", ["int32_words", "g8_signbit", "zero_counts", "empty"])
+def test_probe_tally_equals_plain_on_the_card(gpu, case):
+    """Kernel (b) against its plain version: start, h, the batch's lanes
+    and the tallies it adds into (from a nonzero start); a key of 2^64-1
+    is hit; one launch unless the batch is empty."""
+    q, counts, keys, offsets, hist, tallies = _probe_inputs(case, gpu, len(case))
+    want_tallies = tallies.clone()
+    before = cuda_lib.LAUNCHES["probe_tally"]
+    got = cuda_map.probe_tally(q, counts, keys, offsets, hist, tallies)
+    want = cuda_map.probe_tally_plain(q, counts, keys, offsets, hist, want_tallies)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["probe_tally"] == before + (q.shape[0] > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(tallies, want_tallies)
+    if q.shape[0]:
+        assert (got[1] != 0).any() and (got[0][:7, 0] == offsets[-2]).all()
+    if case == "g8_signbit":
+        assert (got[1] < 0).any()
+
+
+def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000, G=8):
+    """Fold records, starts, row lengths (0 and 255 among them), int64
+    histogram words with bit 63 set, and postings inside the pileup, int32
+    genome-local or int64 at genome `owner`'s nonzero file base."""
+    rng = np.random.default_rng(seed)
+    rec = (rng.integers(0, 16, size=B * k) | (rng.integers(0, 2, size=B * k) << 4)
+           | (rng.integers(0, 1_000_000, size=B * k) << 5)).astype(np.int32)
+    lens = rng.integers(0, 6, size=(B, J)).astype(np.int32)
+    lens[0, :4] = (0, 255, 255, 0)
+    P0 = 200_000
+    start = rng.integers(0, P0, size=(B, J)).astype(np.int32)
+    h = rng.integers(0, 1 << 63, size=(B, J), dtype=np.int64) | np.int64(-(1 << 63))
+    P = P0 + 8 * 255
+    meta = (rng.integers(0, 2, size=P) << 5) | rng.integers(0, k, size=P)
+    lpos = rng.integers(0, T, size=P)
+    bases = np.arange(G, dtype=np.int64) * 7_919 + 1_000_003
+    if post_bytes == 4:
+        postings = ((lpos << 6) | meta).astype(np.int32)
+    else:
+        postings = ((lpos + bases[owner]) << 22) | (owner << 6) | meta
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (to(rec), to(start), to(lens), to(h), to(postings), to(bases),
+            torch.zeros((4, T + 1, 4), dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("post_bytes", [4, 8])
+@pytest.mark.parametrize("mode", ["lens", "saved"])
+def test_walk_scatter_equals_plain_on_the_card(gpu, post_bytes, mode):
+    """Kernel (c) against its plain version, rows of 0 and 255 lanes among
+    them: by (start, lens), and from the saved probe's int64 words with
+    bit 63 set at genome 7 (the top byte) and genome 3; int32 postings,
+    and int64 ones at a nonzero file base read on the card."""
+    for best in ((None,) if mode == "lens" else (7, 3)):
+        pc, start, lens, h, postings, bases, zero = _walk_inputs(post_bytes, gpu, post_bytes,
+                                                                 owner=best or 7)
+        file_base = None if post_bytes == 4 else bases
+        k = pc.shape[0] // start.shape[0]
+        kw = ({"lens": lens} if mode == "lens" else
+              {"h": h, "best": torch.full((1,), best, dtype=torch.int64, device=gpu)})
+        if mode == "lens" and file_base is not None:
+            kw["file_base"] = file_base[7:8]
+        elif file_base is not None:
+            kw["file_base"] = file_base
+        got, want = zero.clone(), zero.clone()
+        before = cuda_lib.LAUNCHES["walk_scatter"]
+        cuda_map.walk_scatter(got, pc, start, postings, k=k, **kw)
+        cuda_map.walk_scatter_plain(want, pc, start, postings, k=k, **kw)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["walk_scatter"] == before + 1
+        assert torch.equal(got, want) and int(got[2:].sum()) > 0
+
+
+def test_walk_scatter_stops_at_the_postings_end(gpu):
+    """A row whose range runs past the postings is walked up to their end
+    (nothing is read out of bounds): the plain version with that row's
+    length cut there gives the same pileup."""
+    pc, start, lens, h, postings, bases, zero = _walk_inputs(4, gpu, 5, B=64)
+    P = postings.shape[0]
+    start[0, 0], lens[0, 0] = P - 3, 200
+    got, want = zero.clone(), zero.clone()
+    cuda_map.walk_scatter(got, pc, start, postings, k=21, lens=lens)
+    cut = torch.minimum(lens, (P - start).clamp_min(0))
+    cuda_map.walk_scatter_plain(want, pc, start, postings, k=21, lens=cut)
+    torch.cuda.synchronize()
+    assert int(cut[0, 0]) == 3 and torch.equal(got, want)
+
+
+def test_map_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    q, counts, keys, offsets, hist, tallies = _probe_inputs("int32_words", gpu, 0, B=64)
+    with pytest.raises(ValueError):
+        cuda_map.probe_tally(q, counts, keys, offsets, hist.to(torch.int16), tallies)
+    with pytest.raises(ValueError):
+        cuda_map.probe_tally(q, counts, keys, offsets, hist,
+                             torch.zeros((9, 3), dtype=torch.int32, device=gpu))
+    with pytest.raises(ValueError):
+        cuda_map.probe_tally(q[:, ::2], counts, keys, offsets, hist, tallies)
+    pc, start, lens, h, postings, bases, zero = _walk_inputs(4, gpu, 0, B=8)
+    with pytest.raises(ValueError):
+        cuda_map.walk_scatter(zero, pc, start, postings, k=21)
+    with pytest.raises(ValueError):
+        cuda_map.walk_scatter(zero, pc, start, postings, k=21, h=h)
+    with pytest.raises(ValueError):
+        cuda_map.walk_scatter(zero, pc, start, postings, k=21, lens=lens[:, :3])
+    with pytest.raises(ValueError):
+        cuda_map.walk_scatter(zero, pc, start, postings.to(torch.int16), k=21, lens=lens)
+
+
+def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeypatch):
+    """Three samples of a 2-genome panel on the card take ('hist',
+    'fused'), launching K1, (b), K2 and (c) once each a batch, with the
+    card's own stage seconds kept beside the wall ones; their tallies,
+    picks, pileups and files equal the two-pass run on the card (the
+    probe cap at 1 byte: ('hist', 'subindex')) and the fused CPU run."""
+    rng = np.random.default_rng(47)
+    base = make_genome(rng, 1500)
+    decoy = bytearray(base)
+    for p in rng.integers(0, len(decoy), 30):
+        decoy[p] = b"ACGT"[(b"ACGT".index(decoy[p]) + 1) % 4]
+    refs = [str(tmp_path / "ref.fasta"), str(tmp_path / "decoy.fasta")]
+    write_fasta(refs[0], "ref", base)
+    write_fasta(refs[1], "decoy", bytes(decoy))
+    fqs = []
+    for i in range(3):
+        reads, _ = make_sample(base, rng, read_len=90, depth=300,
+                               major_positions={400 + 300 * i: 0.9}, error_rate=0.004)
+        fqs.append(str(tmp_path / f"s{i}.fastq.gz"))
+        write_fastq(fqs[-1], reads)
+    monkeypatch.setenv("BRONKO_NO_STREAM", "1")
+    index = build_index(21, refs)
+    runs = {}
+    for name, device, cap in (("cpu", torch.device("cpu"), None), ("gpu", gpu, None),
+                              ("gpu_two_pass", gpu, 1)):
+        with monkeypatch.context() as m:
+            if cap is not None:
+                m.setattr(engine, "PROBE_BYTES_CAP", cap)
+            dev = build_device_index(index, device)
+            before = dict(cuda_lib.LAUNCHES)
+            results = run_call(CallConfig(genomes=refs, reads=fqs, output=str(tmp_path / name),
+                                          output_pileup=True, batch_size=4096), index, dev)
+            torch.cuda.synchronize()
+        launched = {n: cuda_lib.LAUNCHES[n] - before[n] for n in before}
+        want_path = ("hist", "subindex") if cap else ("hist", "fused")
+        assert [r.path for r in results] == [want_path] * 3
+        if name == "gpu":
+            n = launched["bucket_queries"]
+            assert n >= 3 and all(launched[k] == n for k in
+                                  ("probe_tally", "fold_table", "walk_scatter"))
+            for r in results:
+                assert set(r.device_seconds) == {"pass1", "pass2", "d2h"}
+                assert min(r.device_seconds.values()) >= 0
+        runs[name] = (results, {f: open(tmp_path / name / f, "rb").read()
+                                for f in sorted(os.listdir(tmp_path / name))})
+    for name in ("gpu", "gpu_two_pass"):
+        for got, want in zip(runs[name][0], runs["cpu"][0]):
+            assert got.best == want.best == 0
+            np.testing.assert_array_equal(got.tallies, want.tallies)
+            np.testing.assert_array_equal(got.pileup, want.pileup)
+        assert runs[name][1] == runs["cpu"][1]

@@ -18,9 +18,11 @@ from bronko_tpu.index import layout as jl  # noqa: E402
 from bronko_tpu.index.model import BronkoIndex, FileMeta, SeqMeta, pack_meta  # noqa: E402
 from bronko_tpu.ops.map import tally_save_jit, tally_save_words_jit  # noqa: E402
 from bronko_tpu_torch.call import engine as te  # noqa: E402
+from bronko_tpu_torch.config import CallConfig  # noqa: E402
 from bronko_tpu_torch.index import layout as tl  # noqa: E402
 from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64, to_u64  # noqa: E402
+from bronko_tpu_torch.ops.count import CountStats  # noqa: E402
 from bronko_tpu_torch.ops.map import _probe  # noqa: E402
 from tests.test_map import make_index, random_genome  # noqa: E402
 from tests.test_torch_map import _batches  # noqa: E402
@@ -129,13 +131,15 @@ def _jax_map(jd, kb, cb, mcfg):
 
 
 @pytest.mark.parametrize("case,path", [
-    ("ungrouped", ("hist", "subindex")), ("wide", ("hist", "saved")),
+    ("ungrouped", ("hist", "subindex")), ("wide", ("hist", "fused")),
     ("g9", ("words", "saved"))])
 def test_unsupported_layouts_are_named(tmp_path, case, path):
     """The layouts the port once refused map as bronko_tpu maps them:
     postings not grouped by genome (the sub-index pass 2), the int64
-    postings of a genome of 2^25 bp or more, and nine genomes (the
-    multi-word histogram); each carried across from the JAX arrays."""
+    postings of a genome of 2^25 bp or more (the fused single enqueue),
+    and nine genomes (the multi-word histogram, pass 2 from the saved
+    probe); each carried across from the JAX arrays, through the engine's
+    own _map_one and, where it returns a pending sample, its resolve()."""
     index = _panel(tmp_path, "g9" if case == "g9" else "g4_contigs")
     jd = jl.build_device_index(index)
     over = {"ungrouped": {"fid_grouped": False}, "wide": {"postings_local32": None},
@@ -146,15 +150,17 @@ def test_unsupported_layouts_are_named(tmp_path, case, path):
     files = [(f.name, [(s.name, s.seq) for s in f.sequences]) for f in index.files]
     kb, cb = _batches(rng, files, 21)
     batches = [(from_u64(kr, CPU), torch.from_numpy(cr)) for kr, cr in zip(kb, cb)]
-    pcfg = td.map_config(2, False)
-    p1 = te.run_pass1(batches, td, pcfg, kb.size)
-    assert p1.path == path
-    best = te.pick_best_genome(p1.tallies, td)
-    pileup = te.run_pass2(batches, td, pcfg, p1, best).numpy()
+    tindex = from_jax_index(index)
+    counted = te.Counted(kb.reshape(-1), cb.reshape(-1).astype(np.int64),
+                         CountStats(unique_counted_kmers=kb.size), batches, {})
+    mapped = te._map_one(counted, tindex, td, CallConfig(n_fixed=2, use_full_kmer=False))
+    if not isinstance(mapped, te.Mapped):
+        mapped = mapped.resolve(tindex, td)
+    assert mapped.path == path
     want_tallies, want_best, want_pileup = _jax_map(jd, kb, cb, jd.map_config(2, False))
-    np.testing.assert_array_equal(p1.tallies, want_tallies)
-    assert best == want_best is not None
-    np.testing.assert_array_equal(pileup, want_pileup)
+    np.testing.assert_array_equal(mapped.tallies, want_tallies)
+    assert mapped.best == want_best is not None
+    np.testing.assert_array_equal(mapped.pileup, want_pileup)
 
 
 def _index_with_keys(keys, offsets):

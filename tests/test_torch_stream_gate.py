@@ -259,7 +259,7 @@ def test_cohort_stream_first_follows_calibration(monkeypatch, tmp_path, caplog):
                                              batch_size=1024, chunk_reads=4096), index, dev)
         logged = any(r.getMessage().endswith("(streamed)") for r in caplog.records)
         assert logged == (results[0].path[1] == "streamed")
-        assert [r.path[1] for r in results[1:]] == ["saved"]
+        assert [r.path[1] for r in results[1:]] == ["fused"]
         files = {f: open(os.path.join(out, f), "rb").read() for f in sorted(os.listdir(out))}
         return logged, files
 
