@@ -7,43 +7,70 @@
 // (b) probe_tally fuses pass 1 after K1 for the single-word histogram
 //   (bronko_tpu/ops/map.py _tally_save_body: the merge probe, the
 //   histogram pickup, _hist_hits and classify_tallies). One thread takes
-//   one (k-mer, bucket) query: a binary search over the sorted keys (bit
-//   63 flipped, so the signed order is the unsigned one) for the LAST row
-//   equal to the query, the row's CSR start on a hit and its histogram
-//   word where the k-mer's count is positive. A block holds whole k-mers
-//   (kTallyThreads / J of them, their J queries on consecutive threads, so
-//   every load of q and store of start and h is coalesced); each thread
-//   adds its word's G <= 8 bytes to its k-mer's hits in shared memory,
-//   then one thread a k-mer classifies them (perfect: hits == J; variant:
-//   0 < hits != J; unique: the only perfect genome). The block sums its
-//   tallies and per-genome lanes in shared memory and adds them to the
-//   (G, 3) int32 tallies and the (G,) int64 lanes with one global atomic
-//   each. Integer sums: any order gives the same.
-//   Bound: the search's ~log2 U dependent loads a query (the upper levels
-//   shared and cached). A first design gave each k-mer one thread that ran
-//   its J searches in series: at the main batch (152,679 k-mers, one wave
-//   of threads) the kernel took the time of one thread's 16 x 22
-//   dependent loads, 0.31 ms; a thread a query keeps J times more loads in
-//   flight. The byte bound counts the queries, the keys, CSR starts and
-//   words once, and the outputs.
+//   one (k-mer, bucket) query. It finds the LAST row of the sorted keys
+//   (bit 63 flipped, so the signed order is the unsigned one) equal to
+//   the query through the keys' slot directory (ops/cuda_map.py
+//   probe_directory): a query farther than `span` from the smallest key
+//   `lo` misses without a load; else its slot s = (query - lo) >> shift
+//   gives the rows [dir[s], dir[s+1]) its key can be in (about 11 at the
+//   bench fixture, 57 at most), and a last-<= search bounded to them
+//   finds the row. The row's CSR start is kept on a hit, and its
+//   histogram word where the k-mer's count is positive. A block holds
+//   whole k-mers (kTallyThreads / J of them, their J queries on
+//   consecutive threads, so every load of q and store of start and h is
+//   coalesced). A word's eight bytes split into two uint64s of four
+//   16-bit fields (bytes 0, 2, 4, 6 and 1, 3, 5, 7): summed over a
+//   k-mer's J <= 32 queries a field holds at most 32 x 255 = 8,160, and
+//   over a block's 256 threads 65,280, so no field carries into the
+//   next. A k-mer's sums are taken by shuffles where J divides 32, else
+//   by two 64-bit shared-memory adds a thread. Then a thread a k-mer
+//   reads its hits from the fields and classifies them (perfect: hits ==
+//   J; variant: 0 < hits != J; unique: the only perfect genome); each
+//   warp counts its classes by ballot into the block's tallies, the
+//   block's packed sums are its per-genome lanes, and the block adds both
+//   to the (G, 3) int32 tallies and the (G,) int64 lanes with one global
+//   atomic each. Integer sums: any order gives the same.
+//   Bound: random loads, not bytes. A search over all U keys costs ~22
+//   dependent loads a query, of which the ~10 below the cached top of the
+//   tree land on random L2 sectors (the first design: 0.24 of the byte
+//   bound); through the directory a query reads one pair of slot
+//   entries, a sector or two of keys, its CSR start and its word. The
+//   byte bound counts the queries, the keys, CSR starts and words once,
+//   and the outputs; the directory (~2 bytes a key) is the design's own
+//   read and is not in it.
 //
 // (c) walk_scatter is pass 2 without a lane count known on the host
 //   (bronko_tpu/ops/map.py _pileup_from_saved_body / _scatter_lanes; the
-//   port's _walk + _walk_scatter). One thread takes one (k-mer, bucket)
-//   row and loops over its own posting range, so no lane budget, no
-//   repeat_interleave and no host value sizes anything. A row's range is
-//   given (start, lens), or derived from the saved probe (start, h) and a
-//   device pointer to the selected genome `best`: its length is byte
-//   `best` of h and its offset in the bucket the sum of the bytes below
-//   (postings grouped by genome; JAX _saved_lens_prefix). Each posting is
-//   decoded as _walk_scatter does (int32 lpos<<6 | canon<<5 | idx, or
-//   int64 pos<<22 | meta with pos moved by -file_base), reads K2's record
-//   of its k-mer and position, and does atomicMax of the count into a
-//   depth plane and atomicAdd of 1 into a count plane of the (4, T+1, 4)
-//   int32 pileup. Integer max and add give the same result in any order.
-//   Bound: the scattered atomics and the posting reads; the byte bound
-//   counts the rows, the fold records, the walked postings and the
-//   pileup once.
+//   port's _walk + _walk_scatter). A row is one (k-mer, bucket) query;
+//   its posting range is given (start, lens), or derived from the saved
+//   probe (start, h) and a device pointer to the selected genome `best`:
+//   its length is byte `best` of h and its offset in the bucket the sum
+//   of the bytes below (postings grouped by genome; JAX
+//   _saved_lens_prefix). So no lane budget, no repeat_interleave and no
+//   host value sizes the walk. A warp takes 32 consecutive rows and reads
+//   their ranges coalesced; it leaves at once when they hold no posting.
+//   Each lane walks its own row's first posting (most rows hold none or
+//   one), and the warp shares the rest: a scan of the rows' remaining
+//   counts by shuffles, then its lanes take those postings in turn, walk
+//   lane t finding its row by a 5-step search over the scanned offsets
+//   held in the lanes' registers. So no lane idles behind a long row,
+//   and consecutive lanes read consecutive postings of one row. Each
+//   posting is decoded as _walk_scatter does (int32 lpos<<6 | canon<<5 |
+//   idx, or int64 pos<<22 | meta with pos moved by -file_base), reads
+//   K2's record of its k-mer and position, and does a max of the count
+//   into a depth plane and an add of 1 into a count plane of the (4,
+//   T+1, 4) int32 pileup, reductions whose result is not read (RED).
+//   Integer max and add give the same result in any order.
+//   Bound: the random traffic, two reads and two reductions a posting
+//   (the posting, the record and two pileup cells), not bytes: a kernel
+//   with that traffic alone on addresses computed beforehand (the floor
+//   in tools/torch_kernel_variants.py) takes 1.6x the byte bound at the
+//   bench fixture, and on rows of 255 postings the reductions hold it at
+//   14x. The row's own first posting keeps a walk of short rows as cheap
+//   as a thread a row (a warp sharing every posting took 1.12x as long);
+//   sharing the rest takes rows of 255 postings to the floor (a thread a
+//   row took 1.33x as long). The byte bound counts the rows, the fold
+//   records, the walked postings and the pileup once.
 
 #include <cstdint>
 #include <type_traits>
@@ -56,6 +83,13 @@ constexpr int kTallyThreads = 256;
 constexpr int kWalkThreads = 256;
 constexpr int kMaxG = 8;  // genomes of the single-word histogram
 constexpr uint64_t kSign = 1ull << 63;
+constexpr uint64_t kEvenBytes = 0x00FF00FF00FF00FFull;  // bytes 0, 2, 4, 6
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// (c): each lane walks its own row's first posting before the warp shares
+// the rest; rows of kLongRow postings or more walk alone, so a warp's
+// shared walk stays below 2^30 lanes
+constexpr bool kOwnFirst = true;
+constexpr int32_t kLongRow = 1 << 25;
 
 // The word's bits as an unsigned 64-bit value (an int32 word is not
 // sign-extended, so its top byte stays a byte).
@@ -64,20 +98,10 @@ __device__ __forceinline__ uint64_t word_bits(Word w) {
   return static_cast<uint64_t>(static_cast<typename std::make_unsigned<Word>::type>(w));
 }
 
-// The last row of keys[0, n) (ascending as int64) whose key is <= qs, or
-// -1: torch.searchsorted(keys, qs, right=True) - 1.
-__device__ __forceinline__ int64_t last_le(const int64_t* __restrict__ keys, int64_t n,
-                                           int64_t qs) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    if (keys[mid] <= qs) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo - 1;
+// Genome g's field of the packed sums: bytes 0, 2, 4, 6 summed in `even`,
+// 1, 3, 5, 7 in `odd`, 16 bits each.
+__device__ __forceinline__ uint32_t field(uint64_t even, uint64_t odd, int g) {
+  return (uint32_t)(((g & 1) ? odd : even) >> (16 * (g >> 1))) & 0xFFFFu;
 }
 
 // Thread t of a block takes query t % J of the block's k-mer t / J (with
@@ -86,74 +110,150 @@ __device__ __forceinline__ int64_t last_le(const int64_t* __restrict__ keys, int
 template <typename Word>
 __global__ void __launch_bounds__(kTallyThreads)
     probe_tally_kernel(const int64_t* __restrict__ q, const int32_t* __restrict__ counts,
-                       int64_t B, int J, const int64_t* __restrict__ keys, int64_t U,
+                       int64_t B, int J, const int64_t* __restrict__ keys,
+                       const int32_t* __restrict__ dir, int64_t lo, uint64_t span, int shift,
                        const int32_t* __restrict__ offsets, const Word* __restrict__ hist,
                        int G, int32_t* __restrict__ start_out, Word* __restrict__ h_out,
                        int32_t* __restrict__ tallies, unsigned long long* __restrict__ lanes) {
-  __shared__ uint32_t s_hits[kTallyThreads * kMaxG];
+  __shared__ unsigned long long s_even[kTallyThreads], s_odd[kTallyThreads];
   __shared__ int32_t s_tallies[kMaxG * 3];
-  __shared__ unsigned long long s_lanes[kMaxG];
+  __shared__ unsigned long long s_lanes[2];
   const int per_query = J > 0 ? J : 1;
   const int per_block = kTallyThreads / per_query;
-  for (int i = threadIdx.x; i < per_block * kMaxG; i += kTallyThreads) s_hits[i] = 0;
+  const int lane = threadIdx.x & 31;
+  s_even[threadIdx.x] = 0;
+  s_odd[threadIdx.x] = 0;
   if (threadIdx.x < kMaxG * 3) s_tallies[threadIdx.x] = 0;
-  if (threadIdx.x < kMaxG) s_lanes[threadIdx.x] = 0;
+  if (threadIdx.x < 2) s_lanes[threadIdx.x] = 0;
   __syncthreads();
 
   const int64_t first = (int64_t)blockIdx.x * per_block;
   const int local = threadIdx.x / per_query;
   const int64_t b = first + local;
+  uint64_t even = 0, odd = 0;
   if (J > 0 && local < per_block && b < B) {
     const int64_t at = b * J + threadIdx.x % per_query;
     const int64_t qs = (int64_t)((uint64_t)q[at] ^ kSign);
-    const int64_t row = last_le(keys, U, qs);
+    const uint64_t d = (uint64_t)qs - (uint64_t)lo;
     int32_t start = 0;
     Word h = 0;
-    if (row >= 0 && keys[row] == qs) {
-      start = offsets[row];
-      if (counts[b] > 0) h = hist[row];
+    if (d <= span) {
+      const uint64_t s = d >> shift;
+      const int32_t row0 = dir[s];
+      int32_t l = row0, r = dir[s + 1];
+      while (l < r) {  // one past the slot's last row whose key is <= qs
+        const int32_t mid = (int32_t)(((uint32_t)l + (uint32_t)r) >> 1);
+        if (keys[mid] <= qs) {
+          l = mid + 1;
+        } else {
+          r = mid;
+        }
+      }
+      if (l > row0 && keys[l - 1] == qs) {
+        start = offsets[l - 1];
+        if (counts[b] > 0) h = hist[l - 1];
+      }
     }
     start_out[at] = start;
     h_out[at] = h;
     const uint64_t bits = word_bits(h);
-    for (int g = 0; g < G; ++g) {
-      const uint32_t byte = (uint32_t)(bits >> (8 * g)) & 0xFFu;
-      if (byte) atomicAdd(&s_hits[local * kMaxG + g], byte);
+    even = bits & kEvenBytes;
+    odd = (bits >> 8) & kEvenBytes;
+  }
+  if (J > 0 && 32 % J == 0) {  // a k-mer's J threads: J-aligned in one warp
+    for (int off = J >> 1; off > 0; off >>= 1) {
+      even += __shfl_xor_sync(kFullMask, even, off);
+      odd += __shfl_xor_sync(kFullMask, odd, off);
     }
+    if (threadIdx.x % J == 0) {
+      s_even[local] = even;
+      s_odd[local] = odd;
+    }
+  } else if (even | odd) {
+    atomicAdd(&s_even[local], (unsigned long long)even);
+    atomicAdd(&s_odd[local], (unsigned long long)odd);
   }
   __syncthreads();
 
-  const int64_t kb = first + threadIdx.x;
-  if (threadIdx.x < per_block && kb < B && counts[kb] > 0) {
-    const uint32_t* hits = s_hits + threadIdx.x * kMaxG;
+  // thread c classifies the block's k-mer c, in whole warps for the ballots
+  const int c = threadIdx.x;
+  if (c < ((per_block + 31) & ~31)) {
+    const int64_t kb = first + c;
+    const bool valid = c < per_block && kb < B && counts[kb] > 0;
+    const uint64_t ev = s_even[c], od = s_odd[c];
+    uint64_t warp_even = ev, warp_odd = od;
+    for (int off = 16; off > 0; off >>= 1) {
+      warp_even += __shfl_xor_sync(kFullMask, warp_even, off);
+      warp_odd += __shfl_xor_sync(kFullMask, warp_odd, off);
+    }
+    if (lane == 0 && (warp_even | warp_odd)) {
+      atomicAdd(&s_lanes[0], (unsigned long long)warp_even);
+      atomicAdd(&s_lanes[1], (unsigned long long)warp_odd);
+    }
     int n_perfect = 0;
-    for (int g = 0; g < G; ++g) n_perfect += hits[g] == (uint32_t)J;
+    for (int g = 0; g < G; ++g) n_perfect += valid && field(ev, od, g) == (uint32_t)J;
     for (int g = 0; g < G; ++g) {
-      if (hits[g] == (uint32_t)J) {
-        atomicAdd(&s_tallies[g * 3], 1);
-        if (n_perfect == 1) atomicAdd(&s_tallies[g * 3 + 2], 1);
-      } else if (hits[g] > 0) {
-        atomicAdd(&s_tallies[g * 3 + 1], 1);
+      const uint32_t hits = field(ev, od, g);
+      const bool perfect = valid && hits == (uint32_t)J;
+      const unsigned p = __ballot_sync(kFullMask, perfect);
+      const unsigned v = __ballot_sync(kFullMask, valid && hits > 0 && hits != (uint32_t)J);
+      const unsigned u = __ballot_sync(kFullMask, perfect && n_perfect == 1);
+      if (lane == 0) {
+        if (p) atomicAdd(&s_tallies[g * 3], __popc(p));
+        if (v) atomicAdd(&s_tallies[g * 3 + 1], __popc(v));
+        if (u) atomicAdd(&s_tallies[g * 3 + 2], __popc(u));
       }
-      if (hits[g] > 0) atomicAdd(&s_lanes[g], (unsigned long long)hits[g]);
     }
   }
   __syncthreads();
   if (threadIdx.x < G * 3 && s_tallies[threadIdx.x] != 0) {
     atomicAdd(&tallies[threadIdx.x], s_tallies[threadIdx.x]);
   }
-  if (threadIdx.x < G && s_lanes[threadIdx.x] != 0) {
-    atomicAdd(&lanes[threadIdx.x], s_lanes[threadIdx.x]);
+  if (threadIdx.x < G) {
+    const uint32_t sum = field(s_lanes[0], s_lanes[1], threadIdx.x);
+    if (sum) atomicAdd(&lanes[threadIdx.x], (unsigned long long)sum);
   }
 }
 
-// Row r = (k-mer r / J, bucket r % J). lens != nullptr: the row's range is
-// [start[r], start[r] + lens[r]); else it comes from h[r] and *best. The
-// genome's base is file_bases[base_by_best ? *best : 0] (0 without
-// file_bases; only int64 postings read it). A range past the n_postings
-// postings ends there, and a posting whose position index reaches k or
-// whose cell falls outside the pileup is skipped: a valid index has none,
-// and nothing is read or written out of bounds.
+// Posting `at` of K2 records `rec` (its k-mer's first): decoded, then the
+// max of the count into a depth plane and an add of 1 into a count plane.
+// A position index that reaches k, or a cell outside the pileup, is
+// skipped (a valid index has none).
+template <typename Post>
+__device__ __forceinline__ void scatter_posting(const Post* __restrict__ postings, int32_t at,
+                                                const int32_t* __restrict__ pc, int32_t rec,
+                                                int k, int64_t file_base,
+                                                int32_t* __restrict__ pileup, int64_t row_len) {
+  const Post p = postings[at];
+  int64_t pos;
+  uint32_t meta;
+  if constexpr (sizeof(Post) == 4) {
+    pos = (int64_t)(p >> 6);
+    meta = (uint32_t)p & 63u;
+  } else {
+    pos = (int64_t)(p >> 22) - file_base;
+    meta = (uint32_t)((uint64_t)p & 0x3FFFFFu);
+  }
+  const uint32_t idx = meta & 31u;
+  if (idx >= (uint32_t)k) return;
+  const bool is_canon = (meta >> 5) & 1u;
+  const int32_t v = pc[rec + idx];  // mirror bits hold the k-1-idx complement
+  const int64_t base = is_canon ? (v >> 2) & 3 : v & 3;
+  const bool fwd = is_canon == (bool)((v >> 4) & 1);
+  const int64_t cell = pos * 4 + base;
+  if (cell < 0 || cell >= row_len) return;
+  atomicMax(&pileup[(fwd ? 0 : 1) * row_len + cell], v >> 5);
+  atomicAdd(&pileup[(fwd ? 2 : 3) * row_len + cell], 1);
+}
+
+// Row r = (k-mer r / J, bucket r % J), r < 2^31. lens != nullptr: the
+// row's range is [start[r], start[r] + lens[r]); else it comes from h[r]
+// and *best. The genome's base is file_bases[base_by_best ? *best : 0] (0
+// without file_bases; only int64 postings read it). A range past the
+// n_postings < 2^31 postings ends there, and nothing is read or written
+// out of bounds. With kOwnFirst each lane first walks its own row's first
+// posting, and the warp shares the rest; a row of kLongRow postings or
+// more (a CSR range; no histogram byte is one) walks alone.
 template <typename Post, typename Word>
 __global__ void __launch_bounds__(kWalkThreads)
     walk_scatter_kernel(const int32_t* __restrict__ pc, int k, int J,
@@ -163,50 +263,66 @@ __global__ void __launch_bounds__(kWalkThreads)
                         int64_t n_postings, const int64_t* __restrict__ file_bases,
                         int base_by_best, int64_t n_rows, int32_t* __restrict__ pileup,
                         int64_t row_len) {
+  const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  int64_t first = start[r];
-  int32_t n;
-  if (lens != nullptr) {
-    n = lens[r];
-  } else {
-    const int shift = 8 * (int)*best;
-    const uint64_t bits = word_bits(h[r]);
-    n = (int32_t)((bits >> shift) & 0xFFu);
-    const uint64_t below = shift ? bits & ((1ull << shift) - 1) : 0;
-    int32_t prefix = 0;
+  int64_t first = 0;
+  int32_t n = 0;
+  if (r < n_rows) {
+    first = start[r];
+    if (lens != nullptr) {
+      n = lens[r];
+    } else {
+      const int shift = 8 * (int)*best;
+      const uint64_t bits = word_bits(h[r]);
+      n = (int32_t)((bits >> shift) & 0xFFu);
+      const uint64_t below = shift ? bits & ((1ull << shift) - 1) : 0;
+      int32_t prefix = 0;
 #pragma unroll
-    for (int byte = 0; byte < 8; ++byte) prefix += (int32_t)((below >> (8 * byte)) & 0xFFu);
-    first += prefix;
+      for (int byte = 0; byte < 8; ++byte) prefix += (int32_t)((below >> (8 * byte)) & 0xFFu);
+      first += prefix;
+    }
+    if (first < 0 || n <= 0) {
+      n = 0;
+    } else if (first + n > n_postings) {
+      n = first < n_postings ? (int32_t)(n_postings - first) : 0;
+    }
   }
-  if (first < 0 || n <= 0) return;
-  if (first + n > n_postings) n = (int32_t)(first < n_postings ? n_postings - first : 0);
+  if (__all_sync(kFullMask, n == 0)) return;
+  const int32_t rec = (int32_t)((uint32_t)r / (uint32_t)J * (uint32_t)k);  // its k-mer's records
   int64_t file_base = 0;
   if constexpr (sizeof(Post) == 8) {
     if (file_bases != nullptr) file_base = file_bases[base_by_best ? *best : 0];
   }
-  const int32_t* __restrict__ rec = pc + (r / J) * k;
-  for (int32_t i = 0; i < n; ++i) {
-    const Post p = postings[first + i];
-    int64_t pos;
-    uint32_t meta;
-    if constexpr (sizeof(Post) == 4) {
-      pos = (int64_t)(p >> 6);
-      meta = (uint32_t)p & 63u;
-    } else {
-      pos = (int64_t)(p >> 22) - file_base;
-      meta = (uint32_t)((uint64_t)p & 0x3FFFFFu);
+  const int32_t own = kOwnFirst && n > 0 ? 1 : 0;
+  if (own) scatter_posting(postings, (int32_t)first, pc, rec, k, file_base, pileup, row_len);
+  const int32_t rest = n - own;
+  if (__all_sync(kFullMask, rest == 0)) return;
+  if (__any_sync(kFullMask, rest >= kLongRow)) {
+    for (int32_t i = own; i < n; ++i) {
+      scatter_posting(postings, (int32_t)first + i, pc, rec, k, file_base, pileup, row_len);
     }
-    const uint32_t idx = meta & 31u;
-    if (idx >= (uint32_t)k) continue;
-    const bool is_canon = (meta >> 5) & 1u;
-    const int32_t v = rec[idx];  // mirror bits hold the k-1-idx complement
-    const int64_t base = is_canon ? (v >> 2) & 3 : v & 3;
-    const bool fwd = is_canon == (bool)((v >> 4) & 1);
-    const int64_t cell = pos * 4 + base;
-    if (cell < 0 || cell >= row_len) continue;
-    atomicMax(&pileup[(fwd ? 0 : 1) * row_len + cell], v >> 5);
-    atomicAdd(&pileup[(fwd ? 2 : 3) * row_len + cell], 1);
+    return;
+  }
+  // the warp's walk of the rest: an inclusive scan of its 32 rows' counts
+  int32_t end = rest;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t v = __shfl_up_sync(kFullMask, end, off);
+    if (lane >= off) end += v;
+  }
+  const int32_t total = __shfl_sync(kFullMask, end, 31);
+  const int32_t begin = end - rest;                    // this row's first walk lane
+  const int32_t at0 = (int32_t)first + own - begin;    // walk lane t reads posting at0 + t
+  for (int32_t t0 = 0; t0 < total; t0 += 32) {
+    const int32_t t = t0 + lane;
+    int j = 0;  // the last row whose first walk lane is <= t
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(kFullMask, begin, j + step) <= t) j += step;
+    }
+    const int32_t at = __shfl_sync(kFullMask, at0, j) + t;
+    const int32_t rec_j = __shfl_sync(kFullMask, rec, j);
+    if (t < total) scatter_posting(postings, at, pc, rec_j, k, file_base, pileup, row_len);
   }
 }
 
@@ -236,18 +352,21 @@ void launch_walk(unsigned blocks, cudaStream_t stream, const int32_t* pc, int k,
 // the caller can raise on a refused launch.
 
 // q (B, J) int64 bucket ids from K1; keys (U,) int64 with bit 63 flipped;
-// offsets (U+1,) int32; hist (U,) words of word_bytes (4 or 8). Writes
-// start (B, J) int32 and h (B, J) words; adds into tallies (G, 3) int32
-// and lanes (G,) int64.
+// dir (S+1,) int32 the keys' slot directory, with the smallest key lo
+// (bit 63 flipped), the largest key's distance span from it (as uint64
+// bits) and the slots' shift, S > span >> shift; offsets (U+1,) int32;
+// hist (U,) words of word_bytes (4 or 8). Writes start (B, J) int32 and h
+// (B, J) words; adds into tallies (G, 3) int32 and lanes (G,) int64.
 extern "C" int bronko_probe_tally(int device, const int64_t* q, const int32_t* counts,
                                   int64_t B, int J, const int64_t* keys, int64_t U,
+                                  const int32_t* dir, int64_t lo, int64_t span, int shift,
                                   const int32_t* offsets, const void* hist, int word_bytes,
                                   int G, int32_t* start, void* h, int32_t* tallies,
                                   int64_t* lanes, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (G < 1 || G > kMaxG || J < 0 || J > kTallyThreads ||
-      (word_bytes != 4 && word_bytes != 8)) {
+  if (G < 1 || G > kMaxG || J < 0 || J > 32 || U < 0 || U >= (1ll << 31) || shift < 0 ||
+      shift > 63 || (word_bytes != 4 && word_bytes != 8)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B > 0) {
@@ -256,12 +375,14 @@ extern "C" int bronko_probe_tally(int device, const int64_t* q, const int32_t* c
     unsigned long long* lanes_u = reinterpret_cast<unsigned long long*>(lanes);
     if (word_bytes == 8) {
       probe_tally_kernel<int64_t><<<blocks, kTallyThreads, 0, stream>>>(
-          q, counts, B, J, keys, U, offsets, static_cast<const int64_t*>(hist), G, start,
-          static_cast<int64_t*>(h), tallies, lanes_u);
+          q, counts, B, J, keys, dir, lo, (uint64_t)span, shift, offsets,
+          static_cast<const int64_t*>(hist), G, start, static_cast<int64_t*>(h), tallies,
+          lanes_u);
     } else {
       probe_tally_kernel<int32_t><<<blocks, kTallyThreads, 0, stream>>>(
-          q, counts, B, J, keys, U, offsets, static_cast<const int32_t*>(hist), G, start,
-          static_cast<int32_t*>(h), tallies, lanes_u);
+          q, counts, B, J, keys, dir, lo, (uint64_t)span, shift, offsets,
+          static_cast<const int32_t*>(hist), G, start, static_cast<int32_t*>(h), tallies,
+          lanes_u);
     }
   }
   return (int)cudaGetLastError();
@@ -269,8 +390,8 @@ extern "C" int bronko_probe_tally(int device, const int64_t* q, const int32_t* c
 
 // pc (B*k,) int32 K2 records; start (B, J) int32; either lens (B, J) int32,
 // or h (B, J) words of word_bytes with best a device pointer to one int64;
-// n_postings postings of post_bytes (4: int32 genome-local, 8: int64);
-// n_rows = B*J;
+// n_postings < 2^31 postings of post_bytes (4: int32 genome-local, 8:
+// int64); n_rows = B*J < 2^31, B*k < 2^31;
 // pileup (4 * row_len,) int32, accumulated into.
 extern "C" int bronko_walk_scatter(int device, const int32_t* pc, int k, int J,
                                    const int32_t* start, const int32_t* lens, const void* h,
@@ -283,7 +404,8 @@ extern "C" int bronko_walk_scatter(int device, const int32_t* pc, int k, int J,
   if (k < 1 || k > 32 || J < 1 || (post_bytes != 4 && post_bytes != 8) ||
       (lens == nullptr && (h == nullptr || best == nullptr ||
                            (word_bytes != 4 && word_bytes != 8))) ||
-      (base_by_best && best == nullptr)) {
+      (base_by_best && best == nullptr) || n_rows >= (1ll << 31) ||
+      n_postings >= (1ll << 31) || (n_rows / J + 1) * k >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

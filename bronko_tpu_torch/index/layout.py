@@ -14,7 +14,8 @@ Built on first use and cached, so an index whose main path does not need
 them never uploads them: the per-posting genome ids of the flat tally
 (`posting_fids`), the selected genome's sub-index (`subindex`), which
 pass 2 probes when the saved probe cannot serve it, and the fused path's
-per-genome lengths and bases (`glen2_t`, `file_bases_t`).
+per-genome lengths and bases (`glen2_t`, `file_bases_t`), and the slot
+directory of the keys that kernel (b) searches through (`probe_dir`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from bronko_tpu_torch.index.model import (
     CANON_SHIFT, FILE_MASK, FILE_SHIFT, IDX_MASK, SEQ_MASK, SEQ_SHIFT, BronkoIndex,
 )
 from bronko_tpu_torch.ops.codec import from_u64
+from bronko_tpu_torch.ops.cuda_map import ProbeDirectory, probe_directory
 from bronko_tpu_torch.ops.map import SIGN_BIT, MapConfig, make_map_config
 
 KEY_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -99,6 +101,8 @@ class DeviceIndex:
     # first fused sample (JAX's _glen2_dev / _fbases_dev)
     _glen2: torch.Tensor | None = field(repr=False, default=None)
     _fbases: torch.Tensor | None = field(repr=False, default=None)
+    # the keys' slot directory, built at the first single-word pass 1
+    _probe_dir: ProbeDirectory | None = field(repr=False, default=None)
 
     def __post_init__(self):
         # the keys are sorted as uint64; flipping bit 63 makes that order
@@ -157,6 +161,13 @@ class DeviceIndex:
             self._fbases = _put_async(self.file_bases, self.device)
         return self._fbases
 
+    def probe_dir(self) -> ProbeDirectory:
+        """The slot directory of keys_ordered (ops/cuda_map.probe_directory),
+        which kernel (b) and its plain version search through."""
+        if self._probe_dir is None:
+            self._probe_dir = probe_directory(self.keys_ordered)
+        return self._probe_dir
+
     def subindex(self, g: int) -> SubIndex:
         """Genome g's sub-index, from subindex_source at first use (host
         arrays are uploaded), then cached."""
@@ -168,7 +179,7 @@ class DeviceIndex:
         """Bytes of every tensor this index holds on its device now."""
         tensors = [self.keys, self.keys_ordered, self.offsets, self.hist, self.hist_words,
                    self.postings_local32, self.postings, self._fids, self._glen2,
-                   self._fbases]
+                   self._fbases, None if self._probe_dir is None else self._probe_dir.table]
         for sub in self._subindex.values():
             tensors += [sub.keys_ordered, sub.offsets, sub.postings]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)

@@ -114,8 +114,8 @@ def library():
                 "bronko_fold_table": [i32, p, p, i64, i32, p, p],
                 "bronko_pack_windows": [i32, p, p, i64, i64, i32, p, p, p],
                 "bronko_gather": [i32, p, i64, p, i64, p, p],
-                "bronko_probe_tally": [i32, p, p, i64, i32, p, i64, p, p, i32, i32, p, p, p,
-                                       p, p],
+                "bronko_probe_tally": [i32, p, p, i64, i32, p, i64, p, i64, i64, i32, p, p,
+                                       i32, i32, p, p, p, p, p],
                 "bronko_walk_scatter": [i32, p, i32, i32, p, p, p, i32, p, p, i32, i64, p,
                                         i32, i64, p, i64, p],
             }

@@ -8,11 +8,13 @@ live in `bronko_tpu_torch/csrc/map_kernels.cu`, built and loaded with the
 port's other kernels by `ops/cuda_lib.py`.
 
 (b) probe_tally: pass 1 after K1 on the single-word histogram. Each
-k-mer's J bucket queries probe the sorted keys (the LAST equal row); a hit
-gives its CSR start, and its histogram word where the k-mer's count is
-positive; the words' bytes summed over J are the k-mer's posting hits by
-genome, classified into the (G, 3) tallies, and summed into the batch's
-(G,) walk lengths.
+k-mer's J bucket queries probe the sorted keys (the LAST equal row)
+through the slot directory (`probe_directory`): the query's slot gives
+the few rows its key can be in, and a search bounded to them finds the
+row. A hit gives its CSR start, and its histogram word where the k-mer's
+count is positive; the words' bytes summed over J are the k-mer's posting
+hits by genome, classified into the (G, 3) tallies, and summed into the
+batch's (G,) walk lengths.
 
 (c) walk_scatter: pass 2's exact walk. Each (k-mer, bucket) row walks its
 own range of the postings, given as (start, lens), or as the saved probe
@@ -28,11 +30,14 @@ other. Each wrapper adds one to `cuda_lib.LAUNCHES[name]`
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from bronko_tpu_torch.ops.cuda_lib import check_cuda, count_launch, library, raise_on, stream
 
-__all__ = ["probe_tally", "probe_tally_plain", "walk_scatter", "walk_scatter_plain"]
+__all__ = ["ProbeDirectory", "probe_directory", "probe_tally", "probe_tally_plain",
+           "walk_scatter", "walk_scatter_plain"]
 
 # pileup tensor layout: (n_planes=4, T+1, 4 bases)
 # plane 0: depth fwd, 1: depth rev, 2: counts fwd, 3: counts rev
@@ -42,6 +47,7 @@ PLANE_CNT_FWD = 2
 PLANE_CNT_REV = 3
 
 SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
+U64_MASK = (1 << 64) - 1
 MAX_WORD_GENOMES = 8   # genomes of the single histogram word
 
 
@@ -56,6 +62,74 @@ def _probe(q: torch.Tensor, keys_ordered: torch.Tensor):
     row = torch.searchsorted(keys_ordered, qs, right=True) - 1
     rowc = row.clamp_min(0)
     return rowc, (row >= 0) & (keys_ordered[rowc] == qs)
+
+
+class ProbeDirectory(NamedTuple):
+    """The slot directory in front of the key search. A key's slot is
+    its unsigned distance from the smallest key, `(key - lo) mod 2^64`,
+    shifted right by `shift`; slot s holds rows [table[s], table[s+1]).
+    A query farther than `span` (the largest key's distance) from `lo`
+    lies outside the keys and misses without a load."""
+    table: torch.Tensor  # (S+1,) int32 first row of each slot, then U
+    lo: int              # the smallest key of keys_ordered (bit 63 flipped)
+    span: int            # the largest key's distance from lo, in [0, 2^64)
+    shift: int
+    widest: int          # the most rows of one slot
+
+    def steps(self) -> int:
+        """Bisection steps that resolve any slot: ceil(log2(widest + 1))."""
+        return self.widest.bit_length()
+
+
+def probe_directory(keys_ordered: torch.Tensor) -> ProbeDirectory:
+    """The directory of the sorted keys `keys_ordered` (U,) int64 (bit 63
+    flipped), U >= 1 (an index without keys has no histogram to probe).
+    shift = max(0, bit_length(span) - r), r = bit_length(U) - 1, so that
+    the S slots number at most U (and more than U/4 once the keys span
+    more than 2^r): ~2 bytes a key. Two host reads (the end keys) and a
+    bincount's."""
+    U = keys_ordered.shape[0]
+    lo, hi = keys_ordered[[0, -1]].tolist()
+    span = (hi - lo) & U64_MASK
+    shift = max(0, span.bit_length() - (U.bit_length() - 1))
+    counts = torch.bincount(_slot(keys_ordered, lo, shift), minlength=(span >> shift) + 1)
+    table = torch.zeros(counts.shape[0] + 1, dtype=torch.int32, device=keys_ordered.device)
+    torch.cumsum(counts, dim=0, out=table[1:])
+    return ProbeDirectory(table, lo, span, shift, int(counts.max()))
+
+
+def _slot(qs: torch.Tensor, lo: int, shift: int) -> torch.Tensor:
+    """(qs - lo) mod 2^64, logically shifted right by `shift`. torch's >>
+    on int64 is arithmetic, so the sign bits it copies are masked off."""
+    d = qs - lo  # int64 arithmetic wraps: the unsigned distance's bits
+    return (d >> shift) & ((1 << (64 - shift)) - 1) if shift else d
+
+
+def _as_int64(x: int) -> int:
+    """The int64 whose bits are the 64-bit unsigned x."""
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _probe_dir(q: torch.Tensor, keys_ordered: torch.Tensor, directory: ProbeDirectory):
+    """_probe through the directory: (row, hit), row 0 on a miss. A query
+    outside [lo, lo + span] misses; else a last-<= bisection over its
+    slot's rows, directory.steps() steps for every query, finds the last
+    row equal to it (equal keys share a slot)."""
+    qs = q ^ SIGN_BIT
+    # distance <= span as unsigned: both with bit 63 flipped, compared signed
+    inside = ((qs - directory.lo) ^ SIGN_BIT) <= _as_int64(directory.span ^ (1 << 63))
+    s = torch.where(inside, _slot(qs, directory.lo, directory.shift), 0)
+    first = lo = directory.table[s].long()
+    hi = torch.where(inside, directory.table[s + 1].long(), lo)
+    last = keys_ordered.shape[0] - 1
+    for _ in range(directory.steps()):
+        mid = (lo + hi) >> 1
+        le = keys_ordered[mid.clamp(max=last)] <= qs
+        lo, hi = (torch.where((lo < hi) & le, mid + 1, lo),
+                  torch.where((lo < hi) & ~le, mid, hi))
+    row = lo - 1
+    hit = (row >= first) & (keys_ordered[row.clamp(0, last)] == qs)
+    return torch.where(hit, row, 0), hit
 
 
 def _hist_bytes(h: torch.Tensor) -> torch.Tensor:
@@ -84,14 +158,15 @@ def classify_tallies(hits: torch.Tensor, valid_kmer: torch.Tensor, nb: int) -> t
 
 # --- (b): pass 1 after K1 on the single-word histogram -----------------------
 
-def probe_tally_plain(q, counts, keys_ordered, offsets, hist, tallies):
+def probe_tally_plain(q, counts, keys_ordered, directory, offsets, hist, tallies):
     """q (B, J) int64 bucket ids (K1's), counts (B,) int32, keys_ordered
-    (U,) int64 (bit 63 flipped), offsets (U+1,) int32, hist (U,) int32 or
-    int64 words. Adds the batch's perfect / variant / unique counts into
-    tallies (G, 3) int32 and returns (start (B, J) int32, zero on a miss;
-    h (B, J) words, zero on a miss and for zero-count k-mers; lanes (G,)
-    int64, the batch's posting hits by genome: its pass-2 walk lengths)."""
-    rowc, hit = _probe(q, keys_ordered)
+    (U,) int64 (bit 63 flipped) and their `directory` (probe_directory's),
+    offsets (U+1,) int32, hist (U,) int32 or int64 words. Adds the
+    batch's perfect / variant / unique counts into tallies (G, 3) int32
+    and returns (start (B, J) int32, zero on a miss; h (B, J) words, zero
+    on a miss and for zero-count k-mers; lanes (G,) int64, the batch's
+    posting hits by genome: its pass-2 walk lengths)."""
+    rowc, hit = _probe_dir(q, keys_ordered, directory)
     valid = hit & (counts > 0)[:, None]
     h = torch.where(valid, hist[rowc], 0)
     start = torch.where(hit, offsets[rowc], 0)
@@ -100,14 +175,15 @@ def probe_tally_plain(q, counts, keys_ordered, offsets, hist, tallies):
     return start, h, hits.sum(dim=0, dtype=torch.int64)
 
 
-def probe_tally(q, counts, keys_ordered, offsets, hist, tallies):
+def probe_tally(q, counts, keys_ordered, directory, offsets, hist, tallies):
     """Kernel (b). Same result as probe_tally_plain; launches the kernel for
     CUDA tensors (tallies is added into on the card)."""
     if q.device.type == "cpu":
-        return probe_tally_plain(q, counts, keys_ordered, offsets, hist, tallies)
+        return probe_tally_plain(q, counts, keys_ordered, directory, offsets, hist, tallies)
     check_cuda(q, torch.int64, "q", dim=2)
     check_cuda(counts, torch.int32, "counts")
     check_cuda(keys_ordered, torch.int64, "keys_ordered")
+    check_cuda(directory.table, torch.int32, "directory.table")
     check_cuda(offsets, torch.int32, "offsets")
     if hist.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"hist must hold int32 or int64 words, got {hist.dtype}")
@@ -115,10 +191,14 @@ def probe_tally(q, counts, keys_ordered, offsets, hist, tallies):
     check_cuda(tallies, torch.int32, "tallies", dim=2)
     B, J = q.shape
     U, G = keys_ordered.shape[0], tallies.shape[0]
+    S = directory.table.shape[0] - 1
     if (counts.shape[0] != B or offsets.shape[0] != U + 1 or hist.shape[0] != U
-            or tallies.shape[1] != 3 or not 1 <= G <= MAX_WORD_GENOMES):
+            or tallies.shape[1] != 3 or not 1 <= G <= MAX_WORD_GENOMES
+            or S < 1 or int(directory.span) >> directory.shift >= S
+            or not 0 <= directory.shift < 64):
         raise ValueError(f"probe_tally: q {tuple(q.shape)}, counts {tuple(counts.shape)}, "
-                         f"keys ({U},), offsets {tuple(offsets.shape)}, hist "
+                         f"keys ({U},), directory of {S} slots (span {directory.span}, "
+                         f"shift {directory.shift}), offsets {tuple(offsets.shape)}, hist "
                          f"{tuple(hist.shape)}, tallies {tuple(tallies.shape)}")
     start = torch.empty((B, J), dtype=torch.int32, device=q.device)
     h = torch.empty((B, J), dtype=hist.dtype, device=q.device)
@@ -126,7 +206,8 @@ def probe_tally(q, counts, keys_ordered, offsets, hist, tallies):
     if B:
         err = library().bronko_probe_tally(
             q.device.index or 0, q.data_ptr(), counts.data_ptr(), B, J,
-            keys_ordered.data_ptr(), U, offsets.data_ptr(), hist.data_ptr(),
+            keys_ordered.data_ptr(), U, directory.table.data_ptr(), directory.lo,
+            _as_int64(directory.span), directory.shift, offsets.data_ptr(), hist.data_ptr(),
             hist.element_size(), G, start.data_ptr(), h.data_ptr(), tallies.data_ptr(),
             lanes.data_ptr(), stream(q))
         raise_on(err, "probe_tally")

@@ -9,7 +9,8 @@ that module's docstring for the reference semantics):
 
 PASS 1 — per batch: K1 canonicalizes the k-mers and computes the J
 filtered bucket ids; a binary search over the sorted keys finds each
-query's row (the LAST equal row, as the JAX merge probe picks). Per-genome
+query's row (the LAST equal row, as the JAX merge probe picks); on the
+single word, over the rows of the query's slot of the index's directory. Per-genome
 posting hits then come from the row's histogram — the single packed word
 or the multi-word one, both read as bytes, genome g in byte g — or, with
 no histogram, from the flat tally: every posting of every hit bucket
@@ -163,8 +164,8 @@ def _tally_word(batches, dev, cfg: MapConfig):
     lanes, saved = [], []
     for kmers, counts in batches:
         q, _, _ = _bucket_q(kmers, cfg=cfg)
-        start, h, batch_lanes = probe_tally(q, counts, dev.keys_ordered, dev.offsets,
-                                            dev.hist, tallies)
+        start, h, batch_lanes = probe_tally(q, counts, dev.keys_ordered, dev.probe_dir(),
+                                            dev.offsets, dev.hist, tallies)
         saved.append((start, h))
         lanes.append(batch_lanes)
     lanes_t = (torch.stack(lanes) if lanes

@@ -96,14 +96,19 @@ Phases, one line each; any failure exits non-zero:
      ('hist', 'subindex')) and to the fused CPU run, with K1, (b), K2 and
      (c) launched once a batch; s0 enqueued fused under
      torch.cuda.set_sync_debug_mode('error'), its wall stages and the
-     card's own between events; kernels (b) probe_tally and (c)
+     card's own between events; the keys' slot directory (slots, rows a
+     slot, bytes, build time); kernels (b) probe_tally and (c)
      walk_scatter against their plain versions at s0's batch (B =
-     152,679, J = 16, 2,509,920 keys): (b) on the fixture's words and on
-     int64 words of 8 genomes with bit 63 set, (c) on the int32 postings
-     and on the int64 global ones with the file base read on the card,
-     each timed with its byte bound (torch.searchsorted alone beside
-     (b)); warm totals of a lone s0 fused and two-pass, max(N, 9) each in
-     turns;
+     152,679, J = 16, 2,509,920 keys): (b) on the fixture's words, on
+     int64 words of 8 genomes with bit 63 set, on the fixture's keys with
+     a real key 2^64-1 (every other key in three slots), on k = 31 ids
+     past 2^63 and on one key; (c) on the int32 postings, on the int64
+     global ones with the file base read on the card and on rows of 255
+     postings mixed with empty ones; each timed with its byte bound
+     (torch.searchsorted alone beside (b), (c)'s floor beside (c): the
+     same posting, record and pileup traffic on addresses computed
+     beforehand, tools/torch_kernel_variants.py); warm totals of a lone
+     s0 fused and two-pass, max(N, 9) each in turns;
  17. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
 
@@ -1371,17 +1376,85 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     return launches
 
 
+def _variants_tool():
+    """tools/torch_kernel_variants.py, loaded by path (tools/ is no package):
+    the floor of kernel (c), the addresses it takes and the long rows."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_variants", os.path.join(REPO, "tools", "torch_kernel_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _directory_line(dev, smi: str) -> str:
+    """The fixture's slot directory: slots, rows a slot (mean, the mean over
+    keys of their slot's rows, the largest), bytes, and the build's time
+    on the card (median of RUNS fresh builds)."""
+    took = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        directory = cuda_map.probe_directory(dev.keys_ordered)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    if not torch.equal(directory.table, dev.probe_dir().table):
+        fail("fused", "a fresh directory differs from the DeviceIndex's")
+    sizes = torch.diff(directory.table).double()
+    U, S = dev.keys.shape[0], sizes.shape[0]
+    return (f"directory of the {U} keys: S = {S} slots (shift {directory.shift}), "
+            f"{U / S:.2f} rows a slot, {float((sizes * sizes).sum()) / U:.2f} rows in a key's "
+            f"slot on average, {float((sizes == 0).double().mean()):.3f} empty, the largest "
+            f"{directory.widest} ({directory.steps()} bisection steps); "
+            f"{directory.table.numel() * 4} bytes ({directory.table.numel() * 4 / U:.2f} a "
+            f"key); built in {statistics.median(took) * 1e3:.3f} ms (median of {RUNS}; {smi})")
+
+
+def _probe_cases(dev, q, counts):
+    """Kernel (b)'s further cases at s0's batch: (label, q, counts,
+    keys_ordered, offsets, hist). Skewed: the fixture's keys and a real
+    key 2^64-1, which puts every other key in the directory's first three
+    slots, queried by 7 k-mers; k = 31 wrap: 200,000 k-mers' bucket ids
+    (1,024 near-all-T k-mers' past 2^63), 60% of them as keys; U = 1:
+    the fixture's first key alone, queried by 7 k-mers."""
+    rng = np.random.default_rng(SEED + 12)
+    top = torch.full((1,), (1 << 63) - 1, dtype=torch.int64, device=CARD)  # 2^64-1, ordered
+    q_top = q.clone()
+    q_top[:7, 0] = -1
+    cases = [("skewed, a real key 2^64-1", q_top, counts, torch.cat([dev.keys_ordered, top]),
+              torch.cat([dev.offsets, dev.offsets[-1:] + 7]),
+              torch.cat([dev.hist, dev.hist[:1]]))]
+    kmers31, counts31 = _kernel_inputs(31, rng, CARD)
+    kmers31, counts31 = kmers31[:200_000], counts31[:200_000]
+    q31, _, _ = cuda_buckets.bucket_queries(kmers31, 31,
+                                            tuple(filtered_bucket_positions(31, 2, False)))
+    pick = torch.from_numpy(rng.random(q31.numel()) < 0.6).to(CARD)
+    keys31 = torch.unique((q31.reshape(-1) ^ tmap.SIGN_BIT)[pick])
+    sizes = torch.from_numpy(rng.integers(1, 16, size=keys31.shape[0])).to(CARD)
+    offsets31 = torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0)]).to(torch.int32)
+    hist31 = torch.from_numpy(rng.integers(0, 1 << 31, size=keys31.shape[0], dtype=np.int64)
+                              .astype(np.int32) & 0x0F0F0F0F).to(CARD)
+    cases.append(("k=31 ids past 2^63", q31, counts31, keys31, offsets31, hist31))
+    q_one = q.clone()
+    q_one[:7] = dev.keys_ordered[0] ^ tmap.SIGN_BIT
+    cases.append(("one key", q_one, counts, dev.keys_ordered[:1], dev.offsets[:2], dev.hist[:1]))
+    return cases
+
+
 def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
     """Kernels (b) and (c) against their plain versions at one sample's
-    batch on the fixture's index: (b) on its own histogram and on int64
-    words of 8 genomes with bit 63 set; (c) from the saved probe on the
-    int32 postings and on the int64 global ones read at genome `best`'s
-    file base. Returns each one's row of the kernels line (its numbers at
-    the fixture's own words and postings)."""
+    batch on the fixture's index: (b) on its own histogram, on int64
+    words of 8 genomes with bit 63 set, and on the skewed, k = 31 and
+    one-key tables (_probe_cases); (c) from the saved probe on the int32
+    postings and on the int64 global ones read at genome `best`'s file
+    base, and on long rows (the variants tool's long_rows); (c)'s floor
+    beside each. Returns
+    each one's row of the kernels line (its numbers at the fixture's own
+    words and postings)."""
     kmers, counts = batch
     k = dev.k
     positions = tuple(filtered_bucket_positions(k, 2, False))
     q, _, _ = cuda_buckets.bucket_queries(kmers, k, positions)
+    print(f"[fused] {_directory_line(dev, smi)}", flush=True)
     rng = np.random.default_rng(SEED + 11)
     hist8 = torch.from_numpy(rng.integers(0, 1 << 63, size=dev.hist.shape[0], dtype=np.int64)
                              | np.int64(-(1 << 63))).to(CARD)
@@ -1389,11 +1462,15 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
             for name in ("probe_tally", "walk_scatter")}
     G = dev.num_genomes
     saved = None
-    for label, hist in ((f"G={G} {dev.hist.dtype} words", dev.hist),
-                        ("G=8 int64 words, bit 63 set", hist8)):
-        g = G if hist is dev.hist else 8
+    cases = [(f"G={G} {dev.hist.dtype} words", q, counts, dev.keys_ordered, dev.offsets,
+              dev.hist),
+             ("G=8 int64 words, bit 63 set", q, counts, dev.keys_ordered, dev.offsets, hist8),
+             *_probe_cases(dev, q, counts)]
+    for label, q_c, counts_c, keys, offsets, hist in cases:
+        g = 8 if hist is hist8 else G
+        directory = dev.probe_dir() if keys is dev.keys_ordered else cuda_map.probe_directory(keys)
         tallies = torch.zeros((g, 3), dtype=torch.int32, device=CARD)
-        args = (q, counts, dev.keys_ordered, dev.offsets, hist)
+        args = (q_c, counts_c, keys, directory, offsets, hist)
         got = cuda_map.probe_tally(*args, tallies)
         want_tallies = torch.zeros_like(tallies)
         want = cuda_map.probe_tally_plain(*args, want_tallies)
@@ -1405,13 +1482,13 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
         scratch = torch.zeros_like(tallies)
         out = {"ms": median_ms(lambda: cuda_map.probe_tally(*args, scratch)),
                "plain_ms": median_ms(lambda: cuda_map.probe_tally_plain(*args, scratch)),
-               "bound_ms": bound_ms((q, counts, dev.keys_ordered, dev.offsets, hist),
-                                    (*got, tallies))}
-        print(f"[fused] probe_tally B={q.shape[0]} J={q.shape[1]} U={dev.keys.shape[0]} "
+               "bound_ms": bound_ms((q_c, counts_c, keys, offsets, hist), (*got, tallies))}
+        print(f"[fused] probe_tally B={q_c.shape[0]} J={q_c.shape[1]} U={keys.shape[0]} "
               f"{label}: equal; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
               f"bound {out['bound_ms']:.4f} ms (share {out['bound_ms'] / out['ms']:.3f}; "
-              f"{smi})", flush=True)
-        if hist is dev.hist:
+              f"directory of {directory.table.numel() - 1} slots, the largest "
+              f"{directory.widest}; {smi})", flush=True)
+        if hist is dev.hist and keys is dev.keys_ordered:
             qs = q ^ tmap.SIGN_BIT
             out["library_ms"] = median_ms(
                 lambda: torch.searchsorted(dev.keys_ordered, qs, right=True))
@@ -1424,33 +1501,59 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
     pc = cuda_buckets.fold_table(kmers, counts, k)
     best_t = torch.full((1,), best, dtype=torch.int64, device=CARD)
     n_lanes = int(lanes[best])
+    tool = _variants_tool()
+    floor = tool.make_walk_floor(os.path.join(cuda_lib.BUILD_DIR, "floor"))
+    long_pc, long_start, long_lens = tool.long_rows(dev, pc)
     for label, postings, base in (
             ("int32 postings", dev.pass2_postings(), None),
             ("int64 global postings, file base on the card", dev.global_postings(),
-             dev.file_bases_t())):
+             dev.file_bases_t()),
+            ("long rows: 255 postings or none, by (start, lens)", dev.pass2_postings(), None)):
+        long = label.startswith("long")
+
         def walk(fn, pileup):
-            fn(pileup, pc, start, postings, k=k, h=h, best=best_t, file_base=base)
+            if long:
+                fn(pileup, long_pc, long_start, postings, k=k, lens=long_lens)
+            else:
+                fn(pileup, pc, start, postings, k=k, h=h, best=best_t, file_base=base)
             return pileup
 
         empty = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=CARD)
         got = walk(cuda_map.walk_scatter, empty.clone())
         err = max_abs_err((got,), (walk(cuda_map.walk_scatter_plain, empty.clone()),))
         torch.cuda.synchronize()
+        walked = int(long_lens.sum()) if long else n_lanes
         rows["walk_scatter"]["max_abs_err"] = max(rows["walk_scatter"]["max_abs_err"], err)
-        if err != 0.0 or int(got[2:].sum()) != n_lanes:
+        if err != 0.0 or int(got[2:].sum()) != walked:
             fail("fused", f"walk_scatter differs from its plain version with {label}")
         scratch = empty.clone()
         # each input read once, the walked postings alone, the pileup written once
-        nbytes = (sum(t.numel() * t.element_size() for t in (pc, start, h, best_t, got))
-                  + n_lanes * postings.element_size())
+        inputs = (long_pc, long_start, long_lens) if long else (pc, start, h, best_t)
+        nbytes = (sum(t.numel() * t.element_size() for t in (*inputs, got))
+                  + walked * postings.element_size())
         out = {"ms": median_ms(lambda: walk(cuda_map.walk_scatter, scratch)),
                "plain_ms": median_ms(lambda: walk(cuda_map.walk_scatter_plain, scratch)),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        print(f"[fused] walk_scatter B={kmers.shape[0]} J={start.shape[1]} {n_lanes} lanes "
-              f"for genome {best}, {label}: equal; kernel {out['ms']:.4f} ms, plain "
-              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms (share "
-              f"{out['bound_ms'] / out['ms']:.3f}; {smi})", flush=True)
-        if base is None:
+        rows_of = f"{long_lens.numel()} rows" if long else f"B={kmers.shape[0]} J={start.shape[1]}"
+        lanes_of = f"{walked} lanes" + ("" if long else f" for genome {best}")
+        print(f"[fused] walk_scatter {rows_of} {lanes_of}, {label}: "
+              f"equal; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+              f"{out['bound_ms']:.4f} ms (share {out['bound_ms'] / out['ms']:.3f}; {smi})",
+              flush=True)
+        at, rec = tool.walk_addresses(*((long_start, long_lens) if long
+                                        else tool.saved_ranges(start, h, best)), k)
+        file_base = 0 if base is None else int(dev.file_bases[best])
+        pc_walked = long_pc if long else pc
+        floor_got = floor(empty.clone(), pc_walked, k, at, rec, postings, file_base)
+        torch.cuda.synchronize()
+        if not torch.equal(floor_got, got):
+            fail("fused", f"the walk's floor differs from walk_scatter with {label}")
+        floor_ms = median_ms(lambda: floor(scratch, pc_walked, k, at, rec, postings, file_base))
+        print(f"[fused] walk_scatter's floor with {label} (the same posting, record and "
+              f"pileup traffic on addresses computed beforehand, no walk): {floor_ms:.4f} ms, "
+              f"bound {out['bound_ms']:.4f} ms; the kernel at {out['ms'] / floor_ms:.3f}x the "
+              f"floor ({smi})", flush=True)
+        if base is None and not long:
             rows["walk_scatter"].update(out)
     return rows
 

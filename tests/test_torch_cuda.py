@@ -438,64 +438,106 @@ def test_device_counter_cohort_on_two_workers_equals_the_cpu(gpu, tmp_path, monk
     assert len(outs["gpu"]) == 7 and outs["gpu"] == outs["cpu"]
 
 
-def _probe_inputs(case, device, seed, B=20_011, J=16, U=5_000):
-    """Sorted unique keys (bit 63 flipped, the last one 2^64-1), CSR starts,
-    histogram words (int32 at G = 4, int64 with bit 63 set at G = 8), and
-    (B, J) queries of which about half hit, the first k-mers perfect for
-    some genomes, with a quarter of the counts 0."""
-    rng = np.random.default_rng(seed)
-    keys = np.unique(rng.integers(0, 1 << 64, size=U, dtype=np.uint64, endpoint=False))
+def _probe_keys(case, rng, U):
+    """Sorted uint64 keys (U of them unless the case fixes U) and, for the
+    k = 31 case, the (B, J) bucket ids the queries come from."""
+    if case == "skewed":  # every key below 2^64-1 in one slot of the directory
+        keys = np.unique(rng.integers(0, 1 << 40, size=U, dtype=np.uint64))
+    elif case == "u1":
+        return np.asarray([0x14F66C5DB506], np.uint64), None
+    elif case == "k31_wrap":  # bucket ids of k = 31, past 2^63 and below it
+        kmers = rng.integers(0, 1 << 62, size=4_000, dtype=np.uint64)
+        kmers[:2_000] = ((np.uint64(1) << np.uint64(62)) - np.uint64(1)
+                         - rng.integers(0, 1 << 20, size=2_000, dtype=np.uint64))
+        ids, _, _ = cb.bucket_queries_plain(from_u64(kmers, torch.device("cpu")), 31,
+                                            tuple(filtered_bucket_positions(31, 2, False)))
+        ids = ids.numpy().view(np.uint64)
+        return np.unique(ids[rng.random(ids.shape) < 0.6]), ids
+    else:
+        keys = np.unique(rng.integers(0, 1 << 64, size=U, dtype=np.uint64, endpoint=False))
     keys[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    if case == "top_key":  # a real key 2^64-1, then three sentinel rows of it
+        keys = np.concatenate([keys, np.full(3, 0xFFFFFFFFFFFFFFFF, np.uint64)])
+    return keys, None
+
+
+def _probe_inputs(case, device, seed, B=20_011, J=16, U=5_000):
+    """Sorted keys (bit 63 flipped; by case: random with the last one
+    2^64-1, every key below it in one slot, k = 31 bucket ids, a real key
+    2^64-1 followed by sentinel rows, one key), their directory, CSR
+    starts, histogram words (int32 at G = 4, int64 with bit 63 set at G
+    = 8), and (B, J) queries of which about half hit, the first k-mers
+    perfect for some genomes, with a quarter of the counts 0 in one case;
+    J = 13 sums hits by shared-memory adds, J = 26 (k = 31) too."""
+    rng = np.random.default_rng(seed)
+    keys, ids = _probe_keys(case, rng, U)
     U = keys.shape[0]
+    J = {"j13": 13, "j0": 0}.get(case, J if ids is None else ids.shape[1])
     offsets = np.concatenate([[0], np.cumsum(rng.integers(0, 256, U))]).astype(np.int32)
     G = 8 if case == "g8_signbit" else 4
     hist = rng.integers(0, 1 << 63, size=U, dtype=np.int64) | np.int64(-(1 << 63))
     if G == 4:
         hist = (hist & 0x7F7F7F7F).astype(np.int32)
     B = 0 if case == "empty" else B
-    q = np.where(rng.random((B, J)) < 0.5, keys[rng.integers(0, U, (B, J))],
+    pool = keys if ids is None else ids.reshape(-1)
+    q = np.where(rng.random((B, J)) < 0.5, pool[rng.integers(0, pool.shape[0], (B, J))],
                  rng.integers(0, 1 << 64, size=(B, J), dtype=np.uint64, endpoint=False))
     # k-mers whose J queries all hit one key whose bytes are 0 or 1: hits
     # of J (perfect; unique where one genome has it) or 0
     special = rng.integers(0, U, size=min(B, 100))
     hist[special] = ((rng.random((special.shape[0], G)) < 0.4)
                      << (8 * np.arange(G))).sum(axis=1).astype(hist.dtype)
-    q[:special.shape[0]] = keys[special][:, None]
-    q[: min(B, 7), 0] = keys[-1]
+    if J:
+        q[:special.shape[0]] = keys[special][:, None]
+        q[: min(B, 7), 0] = keys[-1]  # the largest key: its last row, U - 1
     counts = rng.integers(1, 1000, size=B).astype(np.int32)
     if case == "zero_counts":
         counts[rng.random(B) < 0.25] = 0
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     tallies = to(rng.integers(0, 100, size=(G, 3)).astype(np.int32))
-    return (from_u64(q.reshape(-1), device).reshape(B, J), to(counts),
-            from_u64(keys, device) ^ cuda_map.SIGN_BIT, to(offsets), to(hist), tallies)
+    keys_ordered = from_u64(keys, device) ^ cuda_map.SIGN_BIT
+    return (from_u64(q.reshape(-1), device).reshape(B, J), to(counts), keys_ordered,
+            cuda_map.probe_directory(keys_ordered), to(offsets), to(hist), tallies)
 
 
-@pytest.mark.parametrize("case", ["int32_words", "g8_signbit", "zero_counts", "empty"])
+@pytest.mark.parametrize("case", ["int32_words", "g8_signbit", "zero_counts", "empty",
+                                  "skewed", "k31_wrap", "top_key", "u1", "j13", "j0"])
 def test_probe_tally_equals_plain_on_the_card(gpu, case):
     """Kernel (b) against its plain version: start, h, the batch's lanes
-    and the tallies it adds into (from a nonzero start); a key of 2^64-1
-    is hit; one launch unless the batch is empty."""
-    q, counts, keys, offsets, hist, tallies = _probe_inputs(case, gpu, len(case))
+    and the tallies it adds into (from a nonzero start); the largest key
+    (2^64-1 but in the k = 31 and one-key cases) is hit at its last row;
+    one launch unless the batch is empty. The cases reach every key
+    through the directory: one slot of ~5,000 keys, ids past 2^63,
+    duplicates of 2^64-1, one key; and both ways of summing a k-mer's
+    hits (J = 16 by shuffles; 13 and 26 by shared-memory adds; 0)."""
+    q, counts, keys, directory, offsets, hist, tallies = _probe_inputs(case, gpu, len(case))
     want_tallies = tallies.clone()
     before = cuda_lib.LAUNCHES["probe_tally"]
-    got = cuda_map.probe_tally(q, counts, keys, offsets, hist, tallies)
-    want = cuda_map.probe_tally_plain(q, counts, keys, offsets, hist, want_tallies)
+    got = cuda_map.probe_tally(q, counts, keys, directory, offsets, hist, tallies)
+    want = cuda_map.probe_tally_plain(q, counts, keys, directory, offsets, hist, want_tallies)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["probe_tally"] == before + (q.shape[0] > 0)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(tallies, want_tallies)
-    if q.shape[0]:
-        assert (got[1] != 0).any() and (got[0][:7, 0] == offsets[-2]).all()
+    if q.shape[0] and q.shape[1]:
+        assert ((got[1] != 0).any() or not hist.any()) and (got[0][:7, 0] == offsets[-2]).all()
+        # the directory's search finds what the search over all keys finds
+        rowc, hit = cuda_map._probe(q, keys)
+        assert torch.equal(got[0], torch.where(hit, offsets[rowc], 0))
     if case == "g8_signbit":
         assert (got[1] < 0).any()
+    if case == "skewed":
+        assert directory.widest == keys.shape[0] - 1
 
 
-def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000, G=8):
+def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000, G=8,
+                 long_rows=False):
     """Fold records, starts, row lengths (0 and 255 among them), int64
     histogram words with bit 63 set, and postings inside the pileup, int32
-    genome-local or int64 at genome `owner`'s nonzero file base."""
+    genome-local or int64 at genome `owner`'s nonzero file base. With
+    long_rows, a quarter of the rows hold 255 postings and the rest none,
+    by lens and in every byte of h."""
     rng = np.random.default_rng(seed)
     rec = (rng.integers(0, 16, size=B * k) | (rng.integers(0, 2, size=B * k) << 4)
            | (rng.integers(0, 1_000_000, size=B * k) << 5)).astype(np.int32)
@@ -504,6 +546,11 @@ def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000
     P0 = 200_000
     start = rng.integers(0, P0, size=(B, J)).astype(np.int32)
     h = rng.integers(0, 1 << 63, size=(B, J), dtype=np.int64) | np.int64(-(1 << 63))
+    if long_rows:
+        full = rng.random((B, J, 8)) < 0.25
+        lens = np.where(full[..., 0], 255, 0).astype(np.int32)
+        h = (full.astype(np.uint64) * np.uint64(255)
+             << (np.uint64(8) * np.arange(8, dtype=np.uint64))).sum(axis=2).view(np.int64)
     P = P0 + 8 * 255
     meta = (rng.integers(0, 2, size=P) << 5) | rng.integers(0, k, size=P)
     lpos = rng.integers(0, T, size=P)
@@ -521,12 +568,15 @@ def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000
 @pytest.mark.parametrize("mode", ["lens", "saved"])
 def test_walk_scatter_equals_plain_on_the_card(gpu, post_bytes, mode):
     """Kernel (c) against its plain version, rows of 0 and 255 lanes among
-    them: by (start, lens), and from the saved probe's int64 words with
-    bit 63 set at genome 7 (the top byte) and genome 3; int32 postings,
-    and int64 ones at a nonzero file base read on the card."""
-    for best in ((None,) if mode == "lens" else (7, 3)):
-        pc, start, lens, h, postings, bases, zero = _walk_inputs(post_bytes, gpu, post_bytes,
-                                                                 owner=best or 7)
+    them, then a batch of rows of 255 lanes mixed with empty ones (a
+    warp's walk crosses rows): by (start, lens), and from the saved
+    probe's int64 words with bit 63 set at genome 7 (the top byte) and
+    genome 3; int32 postings, and int64 ones at a nonzero file base read
+    on the card."""
+    for best, long_rows in [(b, long) for long in (False, True)
+                            for b in ((None,) if mode == "lens" else (7, 3))]:
+        pc, start, lens, h, postings, bases, zero = _walk_inputs(
+            post_bytes, gpu, post_bytes, owner=best or 7, long_rows=long_rows)
         file_base = None if post_bytes == 4 else bases
         k = pc.shape[0] // start.shape[0]
         kw = ({"lens": lens} if mode == "lens" else
@@ -559,15 +609,38 @@ def test_walk_scatter_stops_at_the_postings_end(gpu):
     assert int(cut[0, 0]) == 3 and torch.equal(got, want)
 
 
+def test_walk_scatter_walks_a_range_of_2_25_postings_alone(gpu):
+    """A (start, lens) row of 2^25 postings (a CSR range; no histogram byte
+    is one) beside short rows in its warp: its warp walks every row in
+    its own lane instead of sharing the postings, with the same pileup."""
+    pc, start, lens, h, postings, bases, zero = _walk_inputs(4, gpu, 9, B=4)
+    P = (1 << 25) + 4_096
+    rng = np.random.default_rng(9)
+    postings = torch.from_numpy(((rng.integers(0, 5_000, size=P) << 6)
+                                 | rng.integers(0, 21, size=P)).astype(np.int32)).to(gpu)
+    start = torch.from_numpy(rng.integers(0, 4_096, size=start.shape).astype(np.int32)).to(gpu)
+    lens[0, 3] = 1 << 25
+    got, want = zero.clone(), zero.clone()
+    cuda_map.walk_scatter(got, pc, start, postings, k=21, lens=lens)
+    cuda_map.walk_scatter_plain(want, pc, start, postings, k=21, lens=lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got[2:].sum()) == int(lens.sum())
+
+
 def test_map_wrappers_reject_what_the_kernels_do_not_take(gpu):
-    q, counts, keys, offsets, hist, tallies = _probe_inputs("int32_words", gpu, 0, B=64)
+    q, counts, keys, directory, offsets, hist, tallies = _probe_inputs("int32_words", gpu, 0,
+                                                                       B=64)
     with pytest.raises(ValueError):
-        cuda_map.probe_tally(q, counts, keys, offsets, hist.to(torch.int16), tallies)
+        cuda_map.probe_tally(q, counts, keys, directory, offsets, hist.to(torch.int16),
+                             tallies)
     with pytest.raises(ValueError):
-        cuda_map.probe_tally(q, counts, keys, offsets, hist,
+        cuda_map.probe_tally(q, counts, keys, directory, offsets, hist,
                              torch.zeros((9, 3), dtype=torch.int32, device=gpu))
     with pytest.raises(ValueError):
-        cuda_map.probe_tally(q[:, ::2], counts, keys, offsets, hist, tallies)
+        cuda_map.probe_tally(q[:, ::2], counts, keys, directory, offsets, hist, tallies)
+    with pytest.raises(ValueError):  # a directory of too few slots for its span
+        cuda_map.probe_tally(q, counts, keys, directory._replace(table=directory.table[:2]),
+                             offsets, hist, tallies)
     pc, start, lens, h, postings, bases, zero = _walk_inputs(4, gpu, 0, B=8)
     with pytest.raises(ValueError):
         cuda_map.walk_scatter(zero, pc, start, postings, k=21)

@@ -134,8 +134,8 @@ def test_plain_kernels_match_jax_bodies(tmp_path, case, wide):
     saved, lanes = [], []
     for kmers, counts in batches:
         q, _, _ = bucket_queries_plain(kmers, k, mcfg.positions)
-        start, h, batch_lanes = probe_tally_plain(q, counts, td.keys_ordered, td.offsets,
-                                                  td.hist, tallies)
+        start, h, batch_lanes = probe_tally_plain(q, counts, td.keys_ordered, td.probe_dir(),
+                                                  td.offsets, td.hist, tallies)
         saved.append((start, h))
         lanes.append(batch_lanes)
     jcfg = jd.map_config(2, False)
