@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bucket_queries": 0, "fold_table": 0, "pack_windows": 0, "gather": 0,
-            "probe_tally": 0, "walk_scatter": 0}
+            "probe_tally": 0, "walk_scatter": 0, "walk_hits": 0}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -116,8 +116,11 @@ def library():
                 "bronko_gather": [i32, p, i64, p, i64, p, p],
                 "bronko_probe_tally": [i32, p, p, i64, i32, p, i64, p, i64, i64, i32, p, p,
                                        i32, i32, p, p, p, p, p],
-                "bronko_walk_scatter": [i32, p, i32, i32, p, p, p, i32, p, p, i32, i64, p,
-                                        i32, i64, p, i64, p],
+                "bronko_probe_tally_words": [i32, p, p, i64, i32, p, i64, p, i64, i64, i32, p,
+                                             p, i64, i32, p, p, p, p, p],
+                "bronko_walk_scatter_words": [i32, p, i32, i32, p, p, p, i32, i64, p, p, i32,
+                                              i64, p, i32, i64, p, i64, p],
+                "bronko_walk_hits": [i32, p, p, i64, i32, p, i32, i64, i32, p, p],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

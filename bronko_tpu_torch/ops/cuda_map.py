@@ -1,26 +1,37 @@
-"""Hopper kernels (b) probe_tally and (c) walk_scatter: wrappers and their
-plain PyTorch versions, with the pieces of the mapper both share.
+"""Hopper kernels (b) probe_tally, (c) walk_scatter and (d) walk_hits:
+wrappers and their plain PyTorch versions, with the pieces of the mapper
+they share.
 
-Neither replaces a Pallas kernel: they fuse the XLA work of the JAX
-mapper (`bronko_tpu/ops/map.py`: `_tally_save_body`'s probe and
-classification; `_pileup_from_saved_body`'s walk and scatter). The kernels
-live in `bronko_tpu_torch/csrc/map_kernels.cu`, built and loaded with the
-port's other kernels by `ops/cuda_lib.py`.
+None replaces a Pallas kernel: they fuse the XLA work of the JAX mapper
+(`bronko_tpu/ops/map.py`: `_tally_save_body`'s and
+`tally_save_words_jit`'s probe and classification;
+`_pileup_from_saved_body`'s and `pileup_from_saved_words_jit`'s walk and
+scatter; `tally_flat`'s walk). The kernels live in
+`bronko_tpu_torch/csrc/map_kernels.cu`, built and loaded with the port's
+other kernels by `ops/cuda_lib.py`.
 
-(b) probe_tally: pass 1 after K1 on the single-word histogram. Each
-k-mer's J bucket queries probe the sorted keys (the LAST equal row)
-through the slot directory (`probe_directory`): the query's slot gives
-the few rows its key can be in, and a search bounded to them finds the
-row. A hit gives its CSR start, and its histogram word where the k-mer's
-count is positive; the words' bytes summed over J are the k-mer's posting
-hits by genome, classified into the (G, 3) tallies, and summed into the
-batch's (G,) walk lengths.
+(b) probe_tally: pass 1 after K1 on the histogram, the single word (U,)
+or the multi-word one (U, W). Each k-mer's J bucket queries probe the
+sorted keys (the LAST equal row) through the slot directory
+(`probe_directory`): the query's slot gives the few rows its key can be
+in, and a search bounded to them finds the row. A hit gives its CSR
+start, and its histogram word(s) where the k-mer's count is positive; the
+words' bytes summed over J are the k-mer's posting hits by genome,
+classified into the (G, 3) tallies, and summed into the batch's (G,) walk
+lengths.
 
 (c) walk_scatter: pass 2's exact walk. Each (k-mer, bucket) row walks its
 own range of the postings, given as (start, lens), or as the saved probe
-(start, h) with the selected genome `best` on the device; each posting
-adds one to a count plane and raises a depth plane to the k-mer's count
-in the (4, T+1, 4) int32 pileup. No host value sizes the walk.
+(start, h: one word or W a row) with the selected genome `best` on the
+device; each posting adds one to a count plane and raises a depth plane
+to the k-mer's count in the (4, T+1, 4) int32 pileup. No host value sizes
+the walk.
+
+(d) walk_hits: the flat tally's exact walk. Every posting of every
+(k-mer, bucket) row [start, start + lens) adds one to hits[k-mer,
+genome], its genome an int32 id or decoded from an int64 global posting.
+No lane count on the host: the plain version alone materializes lanes,
+in runs of at most FLAT_LANE_CHUNK.
 
 Dispatch follows the input's device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel. Nothing falls back from one to the
@@ -37,7 +48,7 @@ import torch
 from bronko_tpu_torch.ops.cuda_lib import check_cuda, count_launch, library, raise_on, stream
 
 __all__ = ["ProbeDirectory", "probe_directory", "probe_tally", "probe_tally_plain",
-           "walk_scatter", "walk_scatter_plain"]
+           "walk_scatter", "walk_scatter_plain", "walk_hits", "walk_hits_plain"]
 
 # pileup tensor layout: (n_planes=4, T+1, 4 bases)
 # plane 0: depth fwd, 1: depth rev, 2: counts fwd, 3: counts rev
@@ -49,6 +60,9 @@ PLANE_CNT_REV = 3
 SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
 U64_MASK = (1 << 64) - 1
 MAX_WORD_GENOMES = 8   # genomes of the single histogram word
+# lanes the plain flat walk expands at once (plus at most one bucket's postings)
+FLAT_LANE_CHUNK = 1 << 24
+MAX_HITS_J = 256       # (d): a block's 256 threads hold one row each
 
 
 def _probe(q: torch.Tensor, keys_ordered: torch.Tensor):
@@ -156,19 +170,20 @@ def classify_tallies(hits: torch.Tensor, valid_kmer: torch.Tensor, nb: int) -> t
     ).to(torch.int32)
 
 
-# --- (b): pass 1 after K1 on the single-word histogram -----------------------
+# --- (b): pass 1 after K1 on the histogram --------------------------------
 
 def probe_tally_plain(q, counts, keys_ordered, directory, offsets, hist, tallies):
     """q (B, J) int64 bucket ids (K1's), counts (B,) int32, keys_ordered
     (U,) int64 (bit 63 flipped) and their `directory` (probe_directory's),
-    offsets (U+1,) int32, hist (U,) int32 or int64 words. Adds the
-    batch's perfect / variant / unique counts into tallies (G, 3) int32
-    and returns (start (B, J) int32, zero on a miss; h (B, J) words, zero
-    on a miss and for zero-count k-mers; lanes (G,) int64, the batch's
-    posting hits by genome: its pass-2 walk lengths)."""
+    offsets (U+1,) int32, hist (U,) int32 or int64 words, or (U, W) int64
+    words (genome g in byte g % 8 of word g // 8). Adds the batch's
+    perfect / variant / unique counts into tallies (G, 3) int32 and
+    returns (start (B, J) int32, zero on a miss; h (B, J) or (B, J, W)
+    words, zero on a miss and for zero-count k-mers; lanes (G,) int64,
+    the batch's posting hits by genome: its pass-2 walk lengths)."""
     rowc, hit = _probe_dir(q, keys_ordered, directory)
     valid = hit & (counts > 0)[:, None]
-    h = torch.where(valid, hist[rowc], 0)
+    h = torch.where(valid if hist.dim() == 1 else valid[..., None], hist[rowc], 0)
     start = torch.where(hit, offsets[rowc], 0)
     hits = _hist_hits(h, tallies.shape[0])
     tallies += classify_tallies(hits, counts > 0, q.shape[1])
@@ -177,7 +192,8 @@ def probe_tally_plain(q, counts, keys_ordered, directory, offsets, hist, tallies
 
 def probe_tally(q, counts, keys_ordered, directory, offsets, hist, tallies):
     """Kernel (b). Same result as probe_tally_plain; launches the kernel for
-    CUDA tensors (tallies is added into on the card)."""
+    CUDA tensors (tallies is added into on the card): the single-word
+    entry for hist (U,), the multi-word one for (U, W) int64."""
     if q.device.type == "cpu":
         return probe_tally_plain(q, counts, keys_ordered, directory, offsets, hist, tallies)
     check_cuda(q, torch.int64, "q", dim=2)
@@ -185,15 +201,19 @@ def probe_tally(q, counts, keys_ordered, directory, offsets, hist, tallies):
     check_cuda(keys_ordered, torch.int64, "keys_ordered")
     check_cuda(directory.table, torch.int32, "directory.table")
     check_cuda(offsets, torch.int32, "offsets")
-    if hist.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"hist must hold int32 or int64 words, got {hist.dtype}")
-    check_cuda(hist, hist.dtype, "hist")
+    words = hist.dim() == 2
+    if hist.dtype not in ((torch.int64,) if words else (torch.int32, torch.int64)):
+        raise ValueError(f"hist must hold int32 or int64 words (int64 in a (U, W) table), "
+                         f"got {hist.dtype} of shape {tuple(hist.shape)}")
+    check_cuda(hist, hist.dtype, "hist", dim=2 if words else 1)
     check_cuda(tallies, torch.int32, "tallies", dim=2)
     B, J = q.shape
     U, G = keys_ordered.shape[0], tallies.shape[0]
+    W = hist.shape[1] if words else 1
     S = directory.table.shape[0] - 1
     if (counts.shape[0] != B or offsets.shape[0] != U + 1 or hist.shape[0] != U
-            or tallies.shape[1] != 3 or not 1 <= G <= MAX_WORD_GENOMES
+            or tallies.shape[1] != 3 or not 1 <= G <= MAX_WORD_GENOMES * W
+            or B * max(J, 1) >= 1 << 31
             or S < 1 or int(directory.span) >> directory.shift >= S
             or not 0 <= directory.shift < 64):
         raise ValueError(f"probe_tally: q {tuple(q.shape)}, counts {tuple(counts.shape)}, "
@@ -201,15 +221,19 @@ def probe_tally(q, counts, keys_ordered, directory, offsets, hist, tallies):
                          f"shift {directory.shift}), offsets {tuple(offsets.shape)}, hist "
                          f"{tuple(hist.shape)}, tallies {tuple(tallies.shape)}")
     start = torch.empty((B, J), dtype=torch.int32, device=q.device)
-    h = torch.empty((B, J), dtype=hist.dtype, device=q.device)
+    h = torch.empty((B, J, W) if words else (B, J), dtype=hist.dtype, device=q.device)
     lanes = torch.zeros(G, dtype=torch.int64, device=q.device)
     if B:
-        err = library().bronko_probe_tally(
+        lib, common = library(), (
             q.device.index or 0, q.data_ptr(), counts.data_ptr(), B, J,
             keys_ordered.data_ptr(), U, directory.table.data_ptr(), directory.lo,
-            _as_int64(directory.span), directory.shift, offsets.data_ptr(), hist.data_ptr(),
-            hist.element_size(), G, start.data_ptr(), h.data_ptr(), tallies.data_ptr(),
-            lanes.data_ptr(), stream(q))
+            _as_int64(directory.span), directory.shift, offsets.data_ptr(), hist.data_ptr())
+        out = (G, start.data_ptr(), h.data_ptr(), tallies.data_ptr(), lanes.data_ptr(),
+               stream(q))
+        if words:
+            err = lib.bronko_probe_tally_words(*common, W, *out)
+        else:
+            err = lib.bronko_probe_tally(*common, hist.element_size(), *out)
         raise_on(err, "probe_tally")
         count_launch("probe_tally")
     return start, h, lanes
@@ -267,9 +291,9 @@ def walk_scatter_plain(pileup, pc, start, postings, *, k, lens=None, h=None, bes
     """Walk every (k-mer, bucket) row of one batch into `pileup` ((4, T+1,
     4) int32, added into in place). pc (B*k,) int32 K2 records; start
     (B, J) int32; the rows' lengths are `lens` (B, J) int32, or come from
-    the saved probe: `h` (B, J) histogram words and `best` (1,) int64, the
-    genome whose byte is the length and whose bytes below it the offset
-    added to start. postings int32 (genome-local) or int64 (pos<<22 |
+    the saved probe: `h` (B, J) or (B, J, W) histogram words and `best`
+    (1,) int64, the genome whose byte is the length and whose bytes below
+    it the offset added to start. postings int32 (genome-local) or int64 (pos<<22 |
     meta); `file_base` (int64, one base, or one a genome read at best)
     moves an int64 posting's pos into the genome's space (None: 0)."""
     J = start.shape[1]
@@ -307,11 +331,13 @@ def walk_scatter(pileup, pc, start, postings, *, k, lens=None, h=None, best=None
         if lens.shape != start.shape:
             raise ValueError(f"lens {tuple(lens.shape)} and start {tuple(start.shape)} differ")
     else:
-        if h is None or best is None or h.dtype not in (torch.int32, torch.int64):
-            raise ValueError("walk_scatter needs lens, or h (int32/int64 words) and best")
-        check_cuda(h, h.dtype, "h", dim=2)
+        if (h is None or best is None or h.dtype not in (torch.int32, torch.int64)
+                or (h.dim() == 3 and h.dtype != torch.int64)):
+            raise ValueError("walk_scatter needs lens, or h (int32/int64 words, int64 if W "
+                             "a row) and best")
+        check_cuda(h, h.dtype, "h", dim=3 if h.dim() == 3 else 2)
         check_cuda(best, torch.int64, "best")
-        if h.shape != start.shape or best.numel() != 1:
+        if h.shape[:2] != start.shape or best.numel() != 1:
             raise ValueError(f"h {tuple(h.shape)} must match start {tuple(start.shape)} "
                              f"and best hold one genome")
         word_bytes = h.element_size()
@@ -323,12 +349,85 @@ def walk_scatter(pileup, pc, start, postings, *, k, lens=None, h=None, best=None
         raise ValueError(f"walk_scatter: pileup {tuple(pileup.shape)}, pc "
                          f"{tuple(pc.shape)} for B = {B}, k = {k}")
     if B * J:
-        err = library().bronko_walk_scatter(
+        words = h.shape[2] if lens is None and h.dim() == 3 else 1
+        err = library().bronko_walk_scatter_words(
             pileup.device.index or 0, pc.data_ptr(), k, J, start.data_ptr(),
             None if lens is None else lens.data_ptr(), None if h is None else h.data_ptr(),
-            word_bytes, None if best is None else best.data_ptr(), postings.data_ptr(),
+            word_bytes, words, None if best is None else best.data_ptr(), postings.data_ptr(),
             postings.element_size(), postings.shape[0],
             None if file_base is None else file_base.data_ptr(),
             by_best, B * J, pileup.data_ptr(), pileup.shape[1] * 4, stream(pileup))
         raise_on(err, "walk_scatter")
         count_launch("walk_scatter")
+
+
+# --- (d): the flat tally's exact walk ----------------------------------------
+
+def _row_chunks(lensf: torch.Tensor, lane_chunk: int):
+    """Split the rows into consecutive (r0, r1, lanes) runs: a run holds
+    the rows whose first lane falls in one lane_chunk-wide window, so its
+    lanes stay below lane_chunk plus the longest row. Two host syncs."""
+    cum = torch.cumsum(lensf, dim=0, dtype=torch.int64)
+    total = int(cum[-1]) if cum.numel() else 0
+    if total == 0:
+        return []
+    excl = torch.cat([cum - lensf, cum[-1:]])  # first lane of each row, then the end
+    targets = torch.arange(lane_chunk, max(total, lane_chunk), lane_chunk, device=lensf.device)
+    cuts = torch.searchsorted(excl[:-1], targets)
+    edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), lensf.numel())])
+    first = torch.stack([edges, excl[edges]]).cpu().tolist()
+    return [(r0, r1, l1 - l0) for r0, r1, l0, l1 in zip(first[0], first[0][1:],
+                                                        first[1], first[1][1:])
+            if l1 > l0]
+
+
+def walk_hits_plain(start, lens, genomes, G: int, lane_chunk: int = FLAT_LANE_CHUNK):
+    """(B, G) int32 posting hits of the rows start, lens (B, J) int32: every
+    posting of row (b, j)'s range [start, start + lens) adds one at (b,
+    its genome) (JAX tally_flat). `genomes` are the postings' int32 genome
+    ids, or int64 global postings whose genome is (p & 0x3FFFFF) >> 6. A
+    range past the postings' end stops there, and a genome outside [0, G)
+    counts nowhere (JAX drops it). Walked in row runs of at most
+    lane_chunk lanes plus one row."""
+    B, J = start.shape
+    startf = start.reshape(-1)
+    lensf = torch.where(startf < 0, 0, torch.minimum(
+        lens.reshape(-1), (genomes.shape[0] - startf).clamp_min(0))).to(lens.dtype)
+    hits = torch.zeros(B * G, dtype=torch.int32, device=start.device)
+    for r0, r1, n_lanes in _row_chunks(lensf, lane_chunk):
+        own, post = _walk(startf[r0:r1], lensf[r0:r1], n_lanes)
+        g = genomes[post]
+        if g.dtype == torch.int64:
+            g = (g & 0x3FFFFF) >> 6
+        keep = (g >= 0) & (g < G)
+        at = ((own.long() + r0) // J) * G + g
+        hits.index_add_(0, at[keep], torch.ones_like(at[keep], dtype=torch.int32))
+    return hits.reshape(B, G)
+
+
+def walk_hits(start, lens, genomes, G: int, lane_chunk: int = FLAT_LANE_CHUNK):
+    """Kernel (d). Same result as walk_hits_plain; launches the kernel for
+    CUDA tensors, with no host sync (`lane_chunk` sizes only the plain
+    version's runs)."""
+    if start.device.type == "cpu":
+        return walk_hits_plain(start, lens, genomes, G, lane_chunk)
+    check_cuda(start, torch.int32, "start", dim=2)
+    check_cuda(lens, torch.int32, "lens", dim=2)
+    if genomes.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"genomes must be int32 ids or int64 postings, got {genomes.dtype}")
+    check_cuda(genomes, genomes.dtype, "genomes")
+    B, J = start.shape
+    if (lens.shape != start.shape or G < 1 or J > MAX_HITS_J or B * J >= 1 << 31):
+        raise ValueError(f"walk_hits: start {tuple(start.shape)}, lens {tuple(lens.shape)}, "
+                         f"G = {G} (J at most {MAX_HITS_J}, B * J below 2^31)")
+    hits = torch.empty((B, G), dtype=torch.int32, device=start.device)
+    if J == 0:
+        return hits.zero_()
+    if B:
+        err = library().bronko_walk_hits(
+            start.device.index or 0, start.data_ptr(), lens.data_ptr(), B, J,
+            genomes.data_ptr(), genomes.element_size(), genomes.shape[0], G, hits.data_ptr(),
+            stream(start))
+        raise_on(err, "walk_hits")
+        count_launch("walk_hits")
+    return hits

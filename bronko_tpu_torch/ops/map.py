@@ -9,15 +9,16 @@ that module's docstring for the reference semantics):
 
 PASS 1 — per batch: K1 canonicalizes the k-mers and computes the J
 filtered bucket ids; a binary search over the sorted keys finds each
-query's row (the LAST equal row, as the JAX merge probe picks); on the
-single word, over the rows of the query's slot of the index's directory. Per-genome
+query's row (the LAST equal row, as the JAX merge probe picks); on either
+histogram, over the rows of the query's slot of the index's directory. Per-genome
 posting hits then come from the row's histogram — the single packed word
 or the multi-word one, both read as bytes, genome g in byte g — or, with
 no histogram, from the flat tally: every posting of every hit bucket
-counts one for its genome. Hits are classified as perfect / variant /
-unique. On the single word, kernel (b) (ops/cuda_map.probe_tally) does
-the search, the pickup and the classification in one launch. `tally_save`
-also keeps each batch's probe (CSR start, histogram) for pass 2.
+counts one for its genome, walked by kernel (d) (ops/cuda_map.walk_hits).
+Hits are classified as perfect / variant / unique. On either histogram,
+kernel (b) (ops/cuda_map.probe_tally) does the search, the pickup and the
+classification in one launch. `tally_save` also keeps each batch's probe
+(CSR start, histogram) for pass 2.
 
 PASS 2 — for the selected genome only: K2 builds the per-(k-mer,
 position) fold table; kernel (c) (ops/cuda_map.walk_scatter) walks each
@@ -25,7 +26,8 @@ position) fold table; kernel (c) (ops/cuda_map.walk_scatter) walks each
 max-es the k-mer count into the depth planes and adds 1 into the count
 planes of the (4, Tg+1, 4) int32 pileup. The range comes from the saved
 probe (bucket start + the bytes of the genomes below, when postings are
-grouped by genome) or from a K1 probe of the genome's own sub-index.
+grouped by genome; (c) reads them from the single word or the W words)
+or from a K1 probe of the genome's own sub-index.
 Integer max and add give the same result in any order. Every walk is
 exact and loops over its own range, so no lane count known on the host
 sizes it, and the JAX path's lane budget, overflow retry and dump-row
@@ -37,9 +39,10 @@ with no host sync.
 
 WHOLE INDEX — probe_scatter / map_batch (JAX's, the step entry.py and the
 mesh's map step drive): one batch's K1 probe, the exact walk of every
-genome's postings at their global position, the K2 fold and the scatter
-into the all-genome pileup, with hits by posting genome. It and the flat
-tally keep the torch walk (_walk).
+genome's postings at their global position by kernel (c), the K2 fold and
+the scatter into the all-genome pileup, with hits by posting genome from
+kernel (d) on the same ranges. No host sync: the flat tally and
+probe_scatter size no walk on the host.
 
 Every function takes tensors on one device; the kernels dispatch on it
 (ops/cuda_buckets.py, ops/cuda_map.py).
@@ -55,12 +58,10 @@ import torch
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions
 from bronko_tpu_torch.ops.cuda_buckets import bucket_queries, fold_table
 from bronko_tpu_torch.ops.cuda_map import (  # noqa: F401 — the mapper's names
-    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, SIGN_BIT, _hist_bytes,
-    _hist_hits, _probe, _walk, _walk_scatter, classify_tallies, probe_tally, walk_scatter,
+    FLAT_LANE_CHUNK, PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, SIGN_BIT,
+    _hist_bytes, _hist_hits, _probe, _row_chunks, classify_tallies, probe_tally, walk_hits,
+    walk_scatter,
 )
-
-# lanes the flat tally expands at once (plus at most one bucket's postings)
-FLAT_LANE_CHUNK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -109,107 +110,71 @@ def _probe_hist(kmers, counts, dev, hist, *, cfg: MapConfig):
     return h, torch.where(hit, dev.offsets[rowc], 0)
 
 
-def _row_chunks(lensf: torch.Tensor, lane_chunk: int):
-    """Split the rows into consecutive (r0, r1, lanes) runs: a run holds
-    the rows whose first lane falls in one lane_chunk-wide window, so its
-    lanes stay below lane_chunk plus the longest row. Two host syncs."""
-    cum = torch.cumsum(lensf, dim=0, dtype=torch.int64)
-    total = int(cum[-1]) if cum.numel() else 0
-    if total == 0:
-        return []
-    excl = torch.cat([cum - lensf, cum[-1:]])  # first lane of each row, then the end
-    targets = torch.arange(lane_chunk, max(total, lane_chunk), lane_chunk, device=lensf.device)
-    cuts = torch.searchsorted(excl[:-1], targets)
-    edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), lensf.numel())])
-    first = torch.stack([edges, excl[edges]]).cpu().tolist()
-    return [(r0, r1, l1 - l0) for r0, r1, l0, l1 in zip(first[0], first[0][1:],
-                                                        first[1], first[1][1:])
-            if l1 > l0]
-
-
 def _flat_hits(kmers, counts, dev, *, cfg: MapConfig, lane_chunk: int) -> torch.Tensor:
     """(B, G) int32 posting hits without a histogram: every posting of every
-    hit bucket adds one at its genome (JAX tally_flat), walked in row runs
-    of at most lane_chunk lanes plus one bucket."""
-    B, J, G = kmers.shape[0], len(cfg.positions), cfg.num_genomes
+    hit bucket adds one at its genome (JAX tally_flat), kernel (d) on the
+    probe's ranges and the postings' genome ids (`lane_chunk` sizes the
+    plain version's runs)."""
     start, lens = _ranges(kmers, counts, dev.keys_ordered, dev.offsets, cfg=cfg)
-    startf, lensf = start.reshape(-1), lens.reshape(-1)
-    fids = dev.posting_fids()
-    hits = torch.zeros(B * G, dtype=torch.int32, device=kmers.device)
-    for r0, r1, n_lanes in _row_chunks(lensf, lane_chunk):
-        own, post = _walk(startf[r0:r1], lensf[r0:r1], n_lanes)
-        at = ((own.long() + r0) // J) * G + fids[post]
-        hits.index_add_(0, at, torch.ones_like(at, dtype=torch.int32))
-    return hits.reshape(B, G)
+    return walk_hits(start, lens, dev.posting_fids(), cfg.num_genomes, lane_chunk)
 
 
-def _tally_batches(batches, cfg: MapConfig, hits_of, device):
+def _stack_lanes(lanes: list, G: int, device) -> torch.Tensor:
+    """The batches' (G,) walk lengths as one (nb, G) int64 tensor."""
+    return (torch.stack(lanes) if lanes
+            else torch.zeros((0, G), dtype=torch.int64, device=device))
+
+
+def _tally_probe(batches, dev, cfg: MapConfig, save: bool):
+    """Pass 1 on the histogram, the single word or the multi-word one: K1,
+    then kernel (b) a batch. Keeps each batch's probe only when `save`,
+    so without it one batch's probe is alive at a time."""
     G = cfg.num_genomes
-    tallies = torch.zeros((G, 3), dtype=torch.int32, device=device)
-    lanes = []
-    for kmers, counts in batches:
-        hits = hits_of(kmers, counts)
-        tallies += classify_tallies(hits, counts > 0, len(cfg.positions))
-        lanes.append(hits.sum(dim=0, dtype=torch.int64))
-    lanes_t = (torch.stack(lanes) if lanes
-               else torch.zeros((0, G), dtype=torch.int64, device=device))
-    return tallies, lanes_t
-
-
-def _tally_word(batches, dev, cfg: MapConfig):
-    """Pass 1 on the single-word histogram: K1, then kernel (b) a batch.
-    Returns (tallies, lanes, saved) as tally_save does."""
-    G = cfg.num_genomes
+    hist = dev.hist if dev.hist is not None else dev.hist_words
     tallies = torch.zeros((G, 3), dtype=torch.int32, device=dev.device)
     lanes, saved = [], []
     for kmers, counts in batches:
         q, _, _ = _bucket_q(kmers, cfg=cfg)
         start, h, batch_lanes = probe_tally(q, counts, dev.keys_ordered, dev.probe_dir(),
-                                            dev.offsets, dev.hist, tallies)
-        saved.append((start, h))
+                                            dev.offsets, hist, tallies)
+        if save:
+            saved.append((start, h))
         lanes.append(batch_lanes)
-    lanes_t = (torch.stack(lanes) if lanes
-               else torch.zeros((0, G), dtype=torch.int64, device=dev.device))
-    return tallies, lanes_t, saved
+    return tallies, _stack_lanes(lanes, G, dev.device), saved
+
+
+def tally_save(batches, dev, cfg: MapConfig):
+    """Pass 1 with the saved probe on the histogram, the single word or the
+    multi-word one: K1, then kernel (b) a batch. Returns (tallies, lanes)
+    as `tally` does, and saved[i] = (start (B, J) int32, h (B, J) or (B,
+    J, W)), batch i's probe."""
+    return _tally_probe(batches, dev, cfg, save=True)
 
 
 def tally(batches, dev, cfg: MapConfig, mode: str, lane_chunk: int = FLAT_LANE_CHUNK):
     """Pass 1 without a saved probe over `batches`, a sequence of (kmers
     (B,) int64, counts (B,) int32) pairs; zero counts mark padding. mode:
-    'hist' (single-word histogram: kernel (b)), 'words' (multi-word) or
-    'flat' (every posting, in runs of at most `lane_chunk` lanes plus one
-    bucket).
+    'hist' (single-word histogram) or 'words' (multi-word), both kernel
+    (b) and each only on an index that holds that histogram, or 'flat'
+    (every posting, kernel (d), on any index; its plain version in runs
+    of at most `lane_chunk` lanes plus one bucket).
 
     Returns (tallies (G, 3) int32, lanes (nb, G) int64): lanes[i, g] is
     the number of postings of genome g that batch i's hits cover — the
     exact length of its pass-2 walk."""
-    if mode == "hist":
-        return _tally_word(batches, dev, cfg)[:2]
-    if mode == "flat":
-        def hits_of(kmers, counts):
-            return _flat_hits(kmers, counts, dev, cfg=cfg, lane_chunk=lane_chunk)
-    else:
-        def hits_of(kmers, counts):
-            h, _ = _probe_hist(kmers, counts, dev, dev.hist_words, cfg=cfg)
-            return _hist_hits(h, cfg.num_genomes)
-    return _tally_batches(batches, cfg, hits_of, dev.device)
-
-
-def tally_save(batches, dev, cfg: MapConfig):
-    """Pass 1 with the saved probe: the single-word histogram (kernel (b)),
-    else the multi-word one. Returns (tallies, lanes) as `tally` does, and
-    saved[i] = (start (B, J) int32, h (B, J) or (B, J, W)), batch i's
-    probe."""
-    if dev.hist is not None:
-        return _tally_word(batches, dev, cfg)
-    saved = []
-
-    def hits_of(kmers, counts):
-        h, start = _probe_hist(kmers, counts, dev, dev.hist_words, cfg=cfg)
-        saved.append((start, h))
-        return _hist_hits(h, cfg.num_genomes)
-    tallies, lanes = _tally_batches(batches, cfg, hits_of, dev.device)
-    return tallies, lanes, saved
+    if mode != "flat":
+        if mode != dev.tally_mode():
+            raise ValueError(f"tally mode {mode!r} on an index whose histogram is "
+                             f"{dev.tally_mode()!r}")
+        return _tally_probe(batches, dev, cfg, save=False)[:2]
+    G = cfg.num_genomes
+    tallies = torch.zeros((G, 3), dtype=torch.int32, device=dev.device)
+    lanes = []
+    for kmers, counts in batches:
+        hits = _flat_hits(kmers, counts, dev, cfg=cfg, lane_chunk=lane_chunk)
+        tallies += classify_tallies(hits, counts > 0, len(cfg.positions))
+        lanes.append(hits.sum(dim=0, dtype=torch.int64))
+    return tallies, _stack_lanes(lanes, G, dev.device)
 
 
 def _fold_table(kmers: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
@@ -231,11 +196,11 @@ def pileup_from_saved(batches, saved, lanes, postings: torch.Tensor,
     and kernel (c) a batch. Genome `best`'s range in a bucket starts after
     the postings of the genomes below it (postings grouped by genome), so
     its length is its histogram byte and its offset the sum of the bytes
-    below: (c) derives both from a single word itself, the multi-word
-    ones in torch. `lanes` (host ints, or None) only skips the batches
-    whose walk for `best` is empty; nothing is sized by it. `postings`
-    are the int32 genome-local postings, or the int64 global ones with
-    `file_base` the genome's global offset."""
+    below: (c) derives both from the saved words, one or W a row.
+    `lanes` (host ints, or None) only skips the batches whose walk for
+    `best` is empty; nothing is sized by it. `postings` are the int32
+    genome-local postings, or the int64 global ones with `file_base` the
+    genome's global offset."""
     device = postings.device
     pileup = torch.zeros((4, total_len + 1, 4), dtype=torch.int32, device=device)
     best_t = base_t = None
@@ -244,17 +209,10 @@ def pileup_from_saved(batches, saved, lanes, postings: torch.Tensor,
     for i, ((kmers, counts), (start, h)) in enumerate(zip(batches, saved)):
         if lanes is not None and int(lanes[i]) == 0:
             continue
-        pc = _fold_table(kmers, counts, cfg.k)
-        if h.dim() == 2:
-            if best_t is None:
-                best_t = _genome_scalar(best, device)
-            walk_scatter(pileup, pc, start, postings, k=cfg.k, h=h, best=best_t,
-                         file_base=base_t)
-        else:
-            hb = _hist_bytes(h)
-            walk_scatter(pileup, pc, start + hb[..., :best].sum(dim=-1, dtype=torch.int32),
-                         postings, k=cfg.k, lens=hb[..., best].to(torch.int32),
-                         file_base=base_t)
+        if best_t is None:
+            best_t = _genome_scalar(best, device)
+        walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, postings, k=cfg.k, h=h,
+                     best=best_t, file_base=base_t)
     return pileup
 
 
@@ -300,7 +258,7 @@ def map_fused(batches, dev, cfg: MapConfig, glen2: torch.Tensor, file_bases: tor
     int64, saved, pileup), all on the device, with no host sync."""
     if dev.hist is None:
         raise ValueError("map_fused needs the single-word histogram")
-    tallies, lanes, saved = _tally_word(batches, dev, cfg)
+    tallies, lanes, saved = tally_save(batches, dev, cfg)
     if after_pass1 is not None:
         after_pass1()
     best = pick_best_device(tallies, glen2)
@@ -320,25 +278,16 @@ def probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup, *, cfg
     probe_scatter, map.py:122-170): K1 probes the keys, each hit bucket's
     postings are walked exactly at their position in the pileup's space,
     K2's fold table decodes them into the depth and count planes of a copy
-    of `pileup` ((4, T+1, 4) int32), and every posting counts one hit for
-    its genome. The walk is exact, so there is no lane budget and no
-    overflow flag. `postings` are int64 pos<<22 | fid<<6 | canon<<5 | idx
+    of `pileup` ((4, T+1, 4) int32) through kernel (c), and every posting
+    counts one hit for its genome through kernel (d) on the same ranges.
+    The walks are exact, so there is no lane budget, no overflow flag and
+    no host sync. `postings` are int64 pos<<22 | fid<<6 | canon<<5 | idx
     (DeviceIndex.global_postings, or a shard's). Returns (pileup, hits
     (B, G) int32)."""
-    k, J, G = cfg.k, len(cfg.positions), cfg.num_genomes
-    B = kmers.shape[0]
     start, lens = _ranges(kmers, counts, keys_ordered, offsets, cfg=cfg)
-    lensf = lens.reshape(-1)
-    n_lanes = int(lensf.sum())
-    flat = pileup.reshape(-1).clone()
-    hits = torch.zeros(B * G, dtype=torch.int32, device=kmers.device)
-    if n_lanes:
-        own, post = _walk_scatter(flat, _fold_table(kmers, counts, k), start.reshape(-1),
-                                  lensf, n_lanes, postings, J=J, k=k,
-                                  row_len=pileup.shape[1] * 4, file_base=0)
-        at = (own // J) * G + ((post & 0x3FFFFF) >> 6)
-        hits.index_add_(0, at, torch.ones_like(at, dtype=torch.int32))
-    return flat.reshape(pileup.shape), hits.reshape(B, G)
+    out = pileup.clone()
+    walk_scatter(out, _fold_table(kmers, counts, cfg.k), start, postings, k=cfg.k, lens=lens)
+    return out, walk_hits(start, lens, postings, cfg.num_genomes)
 
 
 def map_batch(kmers, counts, keys_ordered, offsets, postings, pileup, tallies, *,

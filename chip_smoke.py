@@ -38,7 +38,22 @@ Phases, one line each; any failure exits non-zero:
      planted major PASS and equals the same call on the CPU; then, on the
      same sample's device batches, the flat tally and the sub-index
      pass 2 for strain 17 equal the words path, K1 and K2 launched there
-     too; stage seconds, device peaks and index bytes;
+     too; the words path launches (b) and (c) once a batch, the flat tally
+     (d); a flat tally and a probe_scatter batch (the whole index, G = 32)
+     enqueue under torch.cuda.set_sync_debug_mode('error') and equal their
+     plain versions on the card; (b) on the W = 4 words, (c) from them,
+     (d) on the genome ids and on the int64 global postings, and
+     probe_scatter, each against its plain version and timed with its byte
+     bound (torch.searchsorted alone beside (b)); stage seconds, device
+     peaks and index bytes;
+ 8b. panel_flat: a panel past the words guard, 300 strains of synth0 made
+     as the 32 (synth0 itself as strain 17; cached), through `call -g
+     strain*.fasta --device-build on` on the card: the bytes reckoned
+     first, then E > 255, path ('flat', 'subindex'), strain 17 selected,
+     every planted major PASS, (d) launched once a batch; on the same
+     sample's batches (d)'s hits, the tallies and the walk lengths equal
+     the plain version's on the card; the lanes walked, (d) against its
+     plain version in turns, and the peak device memory;
   9. cohort: s0, s1 and s2, each under three names (9 samples), through
      `call` with the host counter on 2 count workers: each sample's VCF
      data lines, pileup TSV and overview row equal its own single-sample
@@ -185,6 +200,8 @@ PANEL_STRAINS = 32  # README's SARS-scale panel: 4 histogram words of 8 genomes
 PANEL_SNPS = 60     # about 0.2% of 29,900 bp, as between lineages
 PANEL_SELF = 17     # synth0 itself: its byte sits in word 2, after two whole words
 PANEL_REPS = 5
+PANEL_FLAT_STRAINS = 300  # past the words guard: buckets of one posting a strain
+FLAT_REPS = 3  # (d) and its plain version in turns at the 300-strain panel
 MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
 STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
@@ -205,6 +222,8 @@ KERNELS = {  # name: (TPU kernel it replaces, source)
                     "bronko_tpu_torch/csrc/map_kernels.cu"),
     "walk_scatter": ("bronko_tpu/ops/map.py:899",
                      "bronko_tpu_torch/csrc/map_kernels.cu"),
+    "walk_hits": ("bronko_tpu/ops/map.py:601",
+                  "bronko_tpu_torch/csrc/map_kernels.cu"),
 }
 
 
@@ -297,20 +316,28 @@ def _pack_inputs(rng, device, R=PACK_R, L=PACK_L):
     return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
 
 
-def _check_and_time(name: str, label: str, kernel, plain, inputs, smi: str, row: dict) -> dict:
+def _check_and_time(name: str, label: str, kernel, plain, inputs, smi: str, row: dict,
+                    phase: str = "kernels", walked_bytes: int = 0, timed=None,
+                    library=None) -> dict:
     """Hold kernel() against plain() (exact), time both and give the bound
-    of the kernel's call; prints one line and returns the numbers."""
+    of the kernel's call (its inputs and outputs, plus `walked_bytes` of
+    postings that a walk reads); `timed` = (kernel, plain) to time where
+    the checked calls allocate their outputs, `library` a PyTorch call to
+    time beside them. Prints one line and returns the numbers."""
     got = kernel()
     err = max_abs_err(got, plain())
     torch.cuda.synchronize()
     row["max_abs_err"] = max(row["max_abs_err"], err)
     if err != 0.0:
-        fail("kernels", f"{name} differs from its plain version at {label}")
-    out = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
-           "bound_ms": bound_ms(inputs, got)}
-    print(f"[kernels] {name} {label}: equal; kernel {out['ms']:.4f} ms, plain "
+        fail(phase, f"{name} differs from its plain version at {label}")
+    k_fn, p_fn = timed or (kernel, plain)
+    out = {"ms": median_ms(k_fn), "plain_ms": median_ms(p_fn),
+           "bound_ms": bound_ms(inputs, got) + walked_bytes / HBM_BYTES_PER_S * 1e3,
+           "library_ms": None if library is None else median_ms(library)}
+    lib = "" if library is None else f", library call {out['library_ms']:.4f} ms"
+    print(f"[{phase}] {name} {label}: equal; kernel {out['ms']:.4f} ms, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms (share "
-          f"{out['bound_ms'] / out['ms']:.3f}; mean of {LAUNCHES_PER_RUN} launches, "
+          f"{out['bound_ms'] / out['ms']:.3f}{lib}; mean of {LAUNCHES_PER_RUN} launches, "
           f"median of {RUNS} runs; {smi})", flush=True)
     return out
 
@@ -545,23 +572,25 @@ def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
     return launches
 
 
-def make_panel(synth0: str) -> list[str]:
-    """The 32-strain panel: strains of synth0 with PANEL_SNPS seeded
-    substitutions each, synth0 itself as strain PANEL_SELF; cached."""
+def make_panel(synth0: str, n: int = PANEL_STRAINS) -> list[str]:
+    """A panel of n strains (32 unless given): strains of synth0 with
+    PANEL_SNPS seeded substitutions each, synth0 itself as strain
+    PANEL_SELF; cached."""
     synth = _synthetic()
     with open(synth0) as fh:
         seq = fh.read().split("\n", 1)[1].replace("\n", "").encode()
-    rng = np.random.default_rng(SEED + PANEL_STRAINS)
-    os.makedirs(os.path.join(CACHE, "panel"), exist_ok=True)
+    rng = np.random.default_rng(SEED + n)
+    folder = os.path.join(CACHE, "panel" if n == PANEL_STRAINS else f"panel{n}")
+    os.makedirs(folder, exist_ok=True)
     paths = []
-    for i in range(PANEL_STRAINS):
+    for i in range(n):
         strain = bytearray(seq)
         sites = rng.choice(len(seq), PANEL_SNPS, replace=False)
         shifts = rng.integers(1, 4, PANEL_SNPS)
         if i != PANEL_SELF:
             for p, d in zip(sites, shifts):
                 strain[p] = b"ACGT"[(b"ACGT".index(strain[p]) + int(d)) % 4]
-        paths.append(os.path.join(CACHE, "panel", f"strain{i:02d}.fasta"))
+        paths.append(os.path.join(folder, f"strain{i:02d}.fasta"))
         if not os.path.exists(paths[-1]):
             synth.write_fasta(paths[-1] + ".tmp", f"strain{i:02d}", bytes(strain))
             os.replace(paths[-1] + ".tmp", paths[-1])
@@ -579,6 +608,44 @@ def _timed(fn) -> tuple[object, float]:
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def panel_passes(dev, batches, mcfg, best: int = PANEL_SELF) -> dict:
+    """The panel's two paths over the sample's device batches, each run by
+    a call that returns ((tallies, pileup), (pass 1 s, pass 2 s), the
+    lanes walked), both passes ending in a host sync: 'words' (tally_save
+    and pileup_from_saved for strain `best`) and 'flat' (the flat tally
+    and the sub-index pass 2). tools/torch_panel_paths.py runs them on
+    another checkout's package."""
+    def words():
+        def pass1():
+            tallies, lanes, saved = tmap.tally_save(batches, dev, mcfg)
+            return tallies, lanes[:, best].tolist(), saved
+        (tallies, walk, saved), pass1_s = _timed(pass1)
+        pileup, pass2_s = _timed(lambda: tmap.pileup_from_saved(
+            batches, saved, walk, dev.postings_local32, best, mcfg, dev.g_total_len))
+        return (tallies, pileup), (pass1_s, pass2_s), sum(walk)
+
+    def flat():
+        def pass1():
+            tallies, lanes = tmap.tally(batches, dev, mcfg, "flat")
+            return tallies, lanes[:, best].tolist(), int(lanes.sum())
+        (tallies, walk, n_lanes), pass1_s = _timed(pass1)
+        pileup, pass2_s = _timed(lambda: tmap.pileup_from_subindex(
+            batches, dev.subindex(best), walk, mcfg, dev.g_total_len))
+        return (tallies, pileup), (pass1_s, pass2_s), (n_lanes, sum(walk))
+
+    return {"words": words, "flat": flat}
+
+
+def time_panel_passes(paths: dict, reps: int) -> dict:
+    """`reps` warm runs of each of panel_passes' paths in turns, the order
+    reversed every other run: name -> [(pass 1 s, pass 2 s), ...]."""
+    times = {name: [] for name in paths}
+    for i in range(reps):
+        for name in list(paths) if i % 2 == 0 else list(paths)[::-1]:
+            times[name].append(paths[name]()[1])
+    return times
 
 
 def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str):
@@ -639,40 +706,24 @@ def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str
     batches = engine.to_batches(kmers, counted.counts, cfg.batch_size, gpu)
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
 
-    def words():
-        def pass1():
-            tallies, lanes, saved = tmap.tally_save(batches, dev, mcfg)
-            return tallies, lanes[:, PANEL_SELF].tolist(), saved
-        (tallies, walk, saved), pass1_s = _timed(pass1)
-        pileup, pass2_s = _timed(lambda: tmap.pileup_from_saved(
-            batches, saved, walk, dev.postings_local32, PANEL_SELF, mcfg, dev.g_total_len))
-        return (tallies, pileup), (pass1_s, pass2_s), sum(walk)
+    if [launches[n] for n in ("probe_tally", "walk_scatter")] != [len(batches)] * 2:
+        fail("panel", f"the words path launched {launches}, expected (b) and (c) "
+                      f"{len(batches)} each")
 
-    def flat():
-        def pass1():
-            tallies, lanes = tmap.tally(batches, dev, mcfg, "flat")
-            return tallies, lanes[:, PANEL_SELF].tolist(), int(lanes.sum())
-        (tallies, walk, n_lanes), pass1_s = _timed(pass1)
-        pileup, pass2_s = _timed(lambda: tmap.pileup_from_subindex(
-            batches, dev.subindex(PANEL_SELF), walk, mcfg, dev.g_total_len))
-        return (tallies, pileup), (pass1_s, pass2_s), (n_lanes, sum(walk))
-
+    passes = panel_passes(dev, batches, mcfg)
     torch.cuda.reset_peak_memory_stats(gpu)
-    (out, cold, (flat_lanes, walk_lanes)), flat_launches = drive(flat)
+    (out, cold, (flat_lanes, walk_lanes)), flat_launches = drive(passes["flat"])
     flat_peak = torch.cuda.max_memory_allocated(gpu)
     missing = [n for n in ("bucket_queries", "fold_table") if flat_launches[n] == 0]
-    if missing:
-        fail("panel", f"kernels never launched on the flat / sub-index path: {missing}")
+    if missing or flat_launches["walk_hits"] != len(batches):
+        fail("panel", f"the flat / sub-index path launched {flat_launches}: K1 and K2, and "
+                      f"(d) {len(batches)} times expected")
     if not np.array_equal(out[0].cpu().numpy(), res.tallies):
         fail("panel", "the flat tally differs from the words path's tallies")
     if not np.array_equal(out[1].cpu().numpy(), res.pileup):
         fail("panel", "the sub-index pass 2 differs from the words path's pileup")
-    times = {"words": [], "flat": []}
-    for i in range(PANEL_REPS):
-        for name in ("words", "flat") if i % 2 == 0 else ("flat", "words"):
-            times[name].append((words if name == "words" else flat)()[1])
     med = {name: [statistics.median(t[j] for t in v) for j in (0, 1)]
-           for name, v in times.items()}
+           for name, v in time_panel_passes(passes, PANEL_REPS).items()}
     print(f"[panel] {kmers.shape[0]} k-mers, {len(batches)} batch(es); flat tally + sub-index "
           f"pass 2 equal the words path (launches {flat_launches}); the flat tally walked "
           f"{flat_lanes} postings, pass 2 {walk_lanes} for strain {PANEL_SELF}; first "
@@ -682,7 +733,210 @@ def phase_panel(synth0: str, fastq: str, planted: list[int], work: str, smi: str
           f"{med['flat'][0]:.6f} + {med['flat'][1]:.6f}s; peak device memory of the flat run "
           f"{flat_peak} bytes; index {index_bytes} bytes on the card ({dev.device_bytes()} with "
           f"the genome ids and the sub-index), host layout {layout_s:.2f}s ({smi})", flush=True)
+    _no_sync_enqueue(dev, batches, mcfg, out[0], smi)
+    _panel_kernel_rows(dev, batches[0], mcfg, smi)
     return res
+
+
+def _probe_scatter_plain(kmers, counts, dev, postings, pileup, cfg):
+    """ops/map.probe_scatter with every kernel's plain version: K1's and
+    K2's, the full key search, (c)'s and (d)'s."""
+    q, _, _ = cuda_buckets.bucket_queries_plain(kmers, cfg.k, cfg.positions)
+    rowc, hit = cuda_map._probe(q, dev.keys_ordered)
+    hit &= (counts > 0)[:, None]
+    start = torch.where(hit, dev.offsets[rowc], 0)
+    lens = torch.where(hit, dev.offsets[rowc + 1] - dev.offsets[rowc], 0)
+    out = pileup.clone()
+    cuda_map.walk_scatter_plain(out, cuda_buckets.fold_table_plain(kmers, counts, cfg.k), start,
+                                postings, k=cfg.k, lens=lens)
+    return out, cuda_map.walk_hits_plain(start, lens, postings, cfg.num_genomes)
+
+
+def _no_sync_enqueue(dev, batches, mcfg, flat_tallies, smi: str) -> None:
+    """A flat tally over the panel's batches and a probe_scatter batch over
+    the whole index, enqueued under set_sync_debug_mode('error'): the
+    tallies equal the flat run's, and both equal their plain versions on
+    the card (the flat tally's hits batch by batch)."""
+    fids, postings = dev.posting_fids(), dev.global_postings()
+    zero = torch.zeros((4, dev.total_len + 1, 4), dtype=torch.int32, device=CARD)
+    kmers, counts = batches[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        (tallies, lanes), launches = drive(lambda: tmap.tally(batches, dev, mcfg, "flat"))
+        scattered, scatter_launches = drive(lambda: tmap.probe_scatter(
+            kmers, counts, dev.keys_ordered, dev.offsets, postings, zero, cfg=mcfg))
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    J = len(mcfg.positions)
+    want_t = torch.zeros_like(tallies)
+    for i, (km, ct) in enumerate(batches):
+        start, lens = tmap._ranges(km, ct, dev.keys_ordered, dev.offsets, cfg=mcfg)
+        hits = cuda_map.walk_hits_plain(start, lens, fids, dev.num_genomes)
+        want_t += cuda_map.classify_tallies(hits, ct > 0, J)
+        if not torch.equal(lanes[i], hits.sum(dim=0, dtype=torch.int64)):
+            fail("panel", f"the flat tally's walk lengths differ from the plain walk's, batch {i}")
+    if not torch.equal(tallies, want_t) or not torch.equal(tallies, flat_tallies):
+        fail("panel", "the flat tally enqueued under the sync check differs")
+    if max_abs_err(scattered, _probe_scatter_plain(kmers, counts, dev, postings, zero,
+                                                   mcfg)) != 0.0:
+        fail("panel", "probe_scatter differs from its plain version")
+    if launches["walk_hits"] != len(batches) or [scatter_launches[n] for n in (
+            "bucket_queries", "fold_table", "walk_scatter", "walk_hits")] != [1] * 4:
+        fail("panel", f"launches under the sync check: flat {launches}, probe_scatter "
+                      f"{scatter_launches}")
+    print(f"[panel] a flat tally of {len(batches)} batch(es) and a probe_scatter batch over the "
+          f"whole index (G = {dev.num_genomes}, {postings.shape[0]} int64 postings) enqueued "
+          f"under set_sync_debug_mode('error'): no sync, {enqueue_s:.6f}s; tallies, walk "
+          f"lengths, pileup and hits equal the plain versions on the card; launches {launches}"
+          f", {scatter_launches} ({smi})", flush=True)
+
+
+def _panel_kernel_rows(dev, batch, mcfg, smi: str) -> None:
+    """(b) on the W = 4 words, (c) from its saved probe for strain
+    PANEL_SELF, (d) on the genome ids and on the int64 global postings,
+    and probe_scatter, at one batch of the panel: each against its plain
+    version on the card, timed, with its byte bound; torch.searchsorted
+    alone beside (b)."""
+    kmers, counts = batch
+    k, G = mcfg.k, dev.num_genomes
+    row = {"max_abs_err": 0.0}
+    q, _, _ = cuda_buckets.bucket_queries(kmers, k, mcfg.positions)
+    args = (q, counts, dev.keys_ordered, dev.probe_dir(), dev.offsets, dev.hist_words)
+
+    def tally_with(fn):
+        tallies = torch.zeros((G, 3), dtype=torch.int32, device=CARD)
+        return (*fn(*args, tallies), tallies)
+    qs = q ^ tmap.SIGN_BIT
+    _check_and_time(
+        "probe_tally", f"B={q.shape[0]} J={q.shape[1]} U={dev.keys.shape[0]} G={G} W="
+        f"{dev.hist_words.shape[1]} words", lambda: tally_with(cuda_map.probe_tally),
+        lambda: tally_with(cuda_map.probe_tally_plain),
+        (q, counts, dev.keys_ordered, dev.offsets, dev.hist_words), smi, row, "panel",
+        library=lambda: torch.searchsorted(dev.keys_ordered, qs, right=True))
+
+    start, h, lanes, _ = tally_with(cuda_map.probe_tally)
+    pc = cuda_buckets.fold_table(kmers, counts, k)
+    best = torch.full((1,), PANEL_SELF, dtype=torch.int64, device=CARD)
+    walked = int(lanes[PANEL_SELF])
+    scratch = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=CARD)
+
+    def walk(fn, pileup=None):
+        pileup = scratch.new_zeros(scratch.shape) if pileup is None else pileup
+        fn(pileup, pc, start, dev.postings_local32, k=k, h=h, best=best)
+        return (pileup,)
+    _check_and_time(
+        "walk_scatter", f"from the W = {h.shape[2]} saved words, strain {PANEL_SELF}, "
+        f"{walked} lanes", lambda: walk(cuda_map.walk_scatter),
+        lambda: walk(cuda_map.walk_scatter_plain), (pc, start, h, best), smi, row, "panel",
+        walked * 4, timed=(lambda: walk(cuda_map.walk_scatter, scratch),
+               lambda: walk(cuda_map.walk_scatter_plain, scratch)))
+
+    start, lens = tmap._ranges(kmers, counts, dev.keys_ordered, dev.offsets, cfg=mcfg)
+    n_lanes = int(lens.sum())
+    for label, src in (("genome ids", dev.posting_fids()), ("int64 postings",
+                                                             dev.global_postings())):
+        _check_and_time(
+            "walk_hits", f"G={G}, {n_lanes} lanes, {label}",
+            lambda src=src: (cuda_map.walk_hits(start, lens, src, G),),
+            lambda src=src: (cuda_map.walk_hits_plain(start, lens, src, G),),
+            (start, lens), smi, row, "panel", n_lanes * src.element_size())
+
+    postings = dev.global_postings()
+    zero = torch.zeros((4, dev.total_len + 1, 4), dtype=torch.int32, device=CARD)
+    _check_and_time(
+        "probe_scatter", f"B={kmers.shape[0]} over the whole index, {n_lanes} lanes",
+        lambda: tmap.probe_scatter(kmers, counts, dev.keys_ordered, dev.offsets, postings,
+                                   zero, cfg=mcfg),
+        lambda: _probe_scatter_plain(kmers, counts, dev, postings, zero, mcfg),
+        (kmers, counts, dev.keys_ordered, dev.offsets), smi, row, "panel", n_lanes * 8)
+
+
+def phase_panel_flat(synth0: str, fastq: str, planted: list[int], work: str, smi: str):
+    """A panel past the words guard: PANEL_FLAT_STRAINS strains of synth0
+    through `call -g --device-build on` on the card (the flat tally on (d),
+    pass 2 through strain PANEL_SELF's sub-index), then (d) against its
+    plain version on the same sample's batches. Returns (d)'s row of the
+    kernels line and its launches on the call's path."""
+    paths = make_panel(synth0, PANEL_FLAT_STRAINS)
+    n_post = PANEL_FLAT_STRAINS * (GENOME_LEN - 20) * 21  # windows x buckets a window
+    print(f"[panel_flat] {PANEL_FLAT_STRAINS} strains: about {n_post} postings, so int32 "
+          f"postings and genome ids of {n_post * 4 / 2**30:.2f} GiB each on the card",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(CARD)
+    out = os.path.join(work, "panel_flat")
+    res, launches = drive(lambda: run_call(paths, fastq, out, None, "host",
+                                           "--device-build", "on"))
+    peak = torch.cuda.max_memory_allocated(CARD)
+    print(stage_line("panel_flat", res, smi), flush=True)
+    if res.path != ("flat", "subindex"):
+        fail("panel_flat", f"expected the flat tally and the sub-index pass 2, took {res.path}")
+    if res.best != PANEL_SELF:
+        fail("panel_flat", f"selected strain {res.best}, not {PANEL_SELF}")
+    absent = [p + 1 for p in planted if p + 1 not in passing_majors(read_vcf(out))]
+    if absent:
+        fail("panel_flat", f"planted majors missing from the VCF: {absent}")
+
+    torch.cuda.reset_peak_memory_stats(CARD)
+    (_, dev), build_s = _timed(lambda: build_device_index_on_device(21, paths, CARD))
+    if dev.max_bucket <= 255 or dev.tally_mode() != "flat":
+        fail("panel_flat", f"E = {dev.max_bucket}, tally mode {dev.tally_mode()}: not past "
+                           f"the words guard")
+    cfg = call_args(paths, fastq, work, "host")
+    counted = engine._count_job([fastq], cfg, cfg.kmer, CARD)
+    batches = engine.to_batches(counted.kmers, counted.counts, cfg.batch_size, CARD)
+    if launches["walk_hits"] != len(batches):
+        fail("panel_flat", f"launches {launches}: (d) {len(batches)} times expected")
+    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+    fids, G, J = dev.posting_fids(), dev.num_genomes, len(mcfg.positions)
+    tallies, lanes = tmap.tally(batches, dev, mcfg, "flat")
+    want_t = torch.zeros_like(tallies)
+    ranges = []
+    for i, (kmers, counts) in enumerate(batches):
+        start, lens = tmap._ranges(kmers, counts, dev.keys_ordered, dev.offsets, cfg=mcfg)
+        got = cuda_map.walk_hits(start, lens, fids, G)
+        hits = cuda_map.walk_hits_plain(start, lens, fids, G)
+        if not torch.equal(got, hits):
+            fail("panel_flat", f"(d)'s hits differ from the plain walk's, batch {i}")
+        want_t += cuda_map.classify_tallies(hits, counts > 0, J)
+        if not torch.equal(lanes[i], hits.sum(dim=0, dtype=torch.int64)):
+            fail("panel_flat", f"walk lengths differ from the plain walk's, batch {i}")
+        ranges.append((start, lens))
+    if not torch.equal(tallies, want_t) or not np.array_equal(tallies.cpu().numpy(),
+                                                               res.tallies):
+        fail("panel_flat", "tallies differ from the plain walk's or the call's")
+    n_lanes = int(lanes.sum())
+    start, lens = ranges[0]
+    walked = int(lens.sum())
+    hits = cuda_map.walk_hits(start, lens, fids, G)
+    times = {"kernel": [], "plain": []}
+    for i in range(FLAT_REPS):
+        for name in ("kernel", "plain") if i % 2 == 0 else ("plain", "kernel"):
+            fn = cuda_map.walk_hits if name == "kernel" else cuda_map.walk_hits_plain
+            times[name].append(median_ms(lambda fn=fn: fn(start, lens, fids, G)))
+    row = {"ms": statistics.median(times["kernel"]), "plain_ms": statistics.median(times["plain"]),
+           "bound_ms": bound_ms((start, lens), (hits,)) + walked * 4 / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": 0.0, "library_ms": None}
+    print(f"[panel_flat] E = {dev.max_bucket} > 255, G = {G}, {fids.shape[0]} postings; path "
+          f"{res.path}, strain {res.best}, {len(planted)} planted majors PASS; launches "
+          f"{launches}; {counted.kmers.shape[0]} k-mers in {len(batches)} batch(es), the flat "
+          f"tally walked {n_lanes} lanes; (d)'s hits, tallies and walk lengths equal the plain "
+          f"walk's on the card; peak device memory of the call {peak} bytes ({peak / 2**30:.2f} "
+          f"GiB), of the card's build {torch.cuda.max_memory_allocated(CARD)} bytes (built in "
+          f"{build_s:.3f}s, index {dev.device_bytes()} bytes with the genome ids) ({smi})",
+          flush=True)
+    print(f"[panel_flat] walk_hits at batch 0, {walked} lanes: kernel "
+          f"{', '.join(f'{t:.4f}' for t in times['kernel'])} ms, plain "
+          f"{', '.join(f'{t:.4f}' for t in times['plain'])} ms in turns (medians {row['ms']:.4f}"
+          f" and {row['plain_ms']:.4f}; each the median of {RUNS} runs of {LAUNCHES_PER_RUN}), "
+          f"bound {row['bound_ms']:.4f} ms (share {row['bound_ms'] / row['ms']:.3f}; {smi})",
+          flush=True)
+    del dev, ranges, batches, counted
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 @contextmanager
@@ -1743,6 +1997,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
           f"CPU {stage_line('cpu', ref, 'host CPU')}", flush=True)
     count_launches = phase_count(db + ".bkdb", fastq, work, res, smi)
     panel_res = phase_panel(genome_paths[0], fastq, planted, work, smi)
+    rows["walk_hits"], flat_launches = phase_panel_flat(genome_paths[0], fastq, planted, work,
+                                                        smi)
     cohort_launches = phase_cohort(db + ".bkdb", fastqs, work, smi)
     phase_profile(db + ".bkdb", fastq, work, smi)
     build_launches = phase_device_build(genome_paths, make_panel(genome_paths[0]), fastq, work,
@@ -1761,7 +2017,9 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     # main path, K3 on the device counter's, K4 on the gather probe's
     launches["pack_windows"] = count_launches["pack_windows"]
     launches["gather"] = rows["gather"]["launches"]
-    print(f"[launches] main path {launches} (K3: the device counter's path); device-counter "
+    launches["walk_hits"] = flat_launches["walk_hits"]
+    print(f"[launches] main path {launches} (K3: the device counter's path; (d): the 300-strain "
+          f"panel's call, {flat_launches}); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
           f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; fused "
           f"cohort {fused_launches}", flush=True)

@@ -1,9 +1,11 @@
-"""Kernels K1-K4, (b) probe_tally and (c) walk_scatter, the port's main
+"""Kernels K1-K4, (b) probe_tally (the single histogram word and the
+multi-word one), (c) walk_scatter (by ranges, the single saved word and
+W saved words), (d) walk_hits and probe_scatter on them, the port's main
 path (with the host and the device counter), the streamed single-sample
-path, the index built on the card, a device-counter cohort on two count
-workers and a cohort of fused samples, on a CUDA card, against
-the plain PyTorch versions on the same card, the host layout and the CPU
-run. Skipped without a card; on
+path, the panel paths, the index built on the card, a device-counter
+cohort on two count workers and a cohort of fused samples, on a CUDA
+card, against the plain PyTorch versions on the same card, the host
+layout and the CPU run. Skipped without a card; on
 one: python -m pytest tests/test_torch_cuda.py -m cuda"""
 
 import os
@@ -24,6 +26,7 @@ from bronko_tpu_torch.index.model import BronkoIndex  # noqa: E402
 from bronko_tpu_torch.ops.buckets import filtered_bucket_positions  # noqa: E402
 from bronko_tpu_torch.call import engine  # noqa: E402
 from bronko_tpu_torch.ops import count, cuda_gather, cuda_map  # noqa: E402
+from bronko_tpu_torch.ops import map as tm  # noqa: E402
 from bronko_tpu_torch.ops import cuda_buckets as cb, cuda_lib  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
 # plain module name (pytest puts tests/ on sys.path): an installed package
@@ -386,6 +389,10 @@ def test_panel_paths_on_the_card_equal_the_cpu(gpu, tmp_path, monkeypatch, case,
         (results[name],) = run_call(cfg, index, build_device_index(index, device))
         assert results[name].path == path
     assert all(cuda_lib.LAUNCHES[k] > before[k] for k in ("bucket_queries", "fold_table"))
+    # the path's own kernels: (b) and (c) on the words, (d) on the flat tally
+    path_kernels = {"g12": ("probe_tally", "walk_scatter"), "polyA9": ("walk_hits",),
+                    "ungrouped": ("probe_tally",)}[case]
+    assert all(cuda_lib.LAUNCHES[k] > before[k] for k in path_kernels)
     assert results["gpu"].best == results["cpu"].best
     np.testing.assert_array_equal(results["gpu"].tallies, results["cpu"].tallies)
     np.testing.assert_array_equal(results["gpu"].pileup, results["cpu"].pileup)
@@ -532,12 +539,13 @@ def test_probe_tally_equals_plain_on_the_card(gpu, case):
 
 
 def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000, G=8,
-                 long_rows=False):
+                 long_rows=False, tail=8):
     """Fold records, starts, row lengths (0 and 255 among them), int64
     histogram words with bit 63 set, and postings inside the pileup, int32
-    genome-local or int64 at genome `owner`'s nonzero file base. With
-    long_rows, a quarter of the rows hold 255 postings and the rest none,
-    by lens and in every byte of h."""
+    genome-local or int64 at genome `owner`'s nonzero file base, `tail`
+    x 255 of them past the last start. With long_rows, a quarter of the
+    rows hold 255 postings and the rest none, by lens and in every byte
+    of h."""
     rng = np.random.default_rng(seed)
     rec = (rng.integers(0, 16, size=B * k) | (rng.integers(0, 2, size=B * k) << 4)
            | (rng.integers(0, 1_000_000, size=B * k) << 5)).astype(np.int32)
@@ -551,7 +559,7 @@ def _walk_inputs(post_bytes, device, seed, owner=7, B=3_001, J=16, k=21, T=5_000
         lens = np.where(full[..., 0], 255, 0).astype(np.int32)
         h = (full.astype(np.uint64) * np.uint64(255)
              << (np.uint64(8) * np.arange(8, dtype=np.uint64))).sum(axis=2).view(np.int64)
-    P = P0 + 8 * 255
+    P = P0 + tail * 255
     meta = (rng.integers(0, 2, size=P) << 5) | rng.integers(0, k, size=P)
     lpos = rng.integers(0, T, size=P)
     bases = np.arange(G, dtype=np.int64) * 7_919 + 1_000_003
@@ -703,3 +711,254 @@ def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeyp
             np.testing.assert_array_equal(got.tallies, want.tallies)
             np.testing.assert_array_equal(got.pileup, want.pileup)
         assert runs[name][1] == runs["cpu"][1]
+
+
+def _words(rng, U, G, device):
+    """(U, ceil(G/8)) int64 histogram words: bytes 0 or 1 (so k-mers come
+    out perfect, unique and variant), 128-255 in the top byte of every
+    word in a tenth of the rows (bit 63 set), zero past genome G."""
+    W = -(-G // 8)
+    b = (rng.random((U, 8 * W)) < 0.85).astype(np.uint64)
+    top = rng.random(U) < 0.1
+    b[top, 7::8] = rng.integers(128, 256, size=(int(top.sum()), W))
+    b[:, G:] = 0
+    words = (b.reshape(U, W, 8) << (np.uint64(8) * np.arange(8, dtype=np.uint64))).sum(axis=2)
+    return torch.from_numpy(words.view(np.int64)).to(device)
+
+
+@pytest.mark.parametrize("W,G,case", [(2, 9, "int32_words"), (2, 16, "j13"),
+                                      (4, 32, "int32_words"), (4, 32, "zero_counts"),
+                                      (5, 40, "k31_wrap"), (5, 37, "skewed")])
+def test_probe_tally_words_equals_plain_on_the_card(gpu, W, G, case):
+    """Kernel (b) on the multi-word histogram against its plain version:
+    start, h (B, J, W), the batch's lanes and the tallies added into, one
+    launch. G = 9, 37: the last word's bytes past G are unused; bit 63 set
+    in a tenth of the rows; J = 13 and 26 sum a k-mer's hits by
+    shared-memory adds; zero counts; every key below 2^64-1 in one slot."""
+    q, counts, keys, directory, offsets, _, _ = _probe_inputs(case, gpu, len(case) + W)
+    rng = np.random.default_rng(G)
+    hist = _words(rng, keys.shape[0], G, gpu)
+    assert hist.shape[1] == W
+    # k-mers 10-59 query one key J times (_probe_inputs): that key's row
+    # holds one posting of one genome, so the k-mer is perfect and unique
+    rows, hit = cuda_map._probe(q[10:60, :1], keys)
+    one = torch.from_numpy(rng.integers(0, G, size=50)).to(gpu)
+    unique = torch.zeros((50, W), dtype=torch.int64, device=gpu)
+    unique[torch.arange(50, device=gpu), one // 8] = 1 << (8 * (one % 8))
+    hist[rows[hit[:, 0], 0]] = unique[hit[:, 0]]
+    tallies = torch.from_numpy(rng.integers(0, 100, size=(G, 3)).astype(np.int32)).to(gpu)
+    want_tallies, tallies0 = tallies.clone(), tallies.clone()
+    before = cuda_lib.LAUNCHES["probe_tally"]
+    got = cuda_map.probe_tally(q, counts, keys, directory, offsets, hist, tallies)
+    want = cuda_map.probe_tally_plain(q, counts, keys, directory, offsets, hist, want_tallies)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["probe_tally"] == before + 1
+    assert got[1].shape == (*q.shape, W)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(tallies, want_tallies)
+    added = tallies - tallies0
+    assert (got[1] < 0).any() and int(added[:, 1].sum()) > 0
+    assert int(added[:, 0].sum()) >= int(added[:, 2].sum()) > 0
+
+
+@pytest.mark.parametrize("post_bytes", [4, 8])
+@pytest.mark.parametrize("best", [3, 12, 31])
+def test_walk_scatter_words_equals_plain_on_the_card(gpu, post_bytes, best):
+    """Kernel (c) from W = 4 saved words a row, genome `best` in the first,
+    a middle and the last word: bytes of up to 255 (bit 63 set), so the
+    offset (every byte below `best`) passes 255; int32 postings, and
+    int64 ones at the genome's file base read on the card."""
+    W = 4
+    pc, start, _, _, postings, bases, zero = _walk_inputs(
+        post_bytes, gpu, best, owner=best, G=8 * W, tail=8 * W)
+    rng = np.random.default_rng(best)
+    hw = rng.integers(0, 256, size=(*start.shape, 8 * W), dtype=np.uint64)
+    hw[rng.random(tuple(start.shape)) < 0.3] = 0
+    h = torch.from_numpy((hw.reshape(*start.shape, W, 8)
+                          << (np.uint64(8) * np.arange(8, dtype=np.uint64))
+                          ).sum(axis=-1).view(np.int64)).to(gpu)
+    kw = {"h": h, "best": torch.full((1,), best, dtype=torch.int64, device=gpu),
+          "file_base": None if post_bytes == 4 else bases}
+    k = pc.shape[0] // start.shape[0]
+    got, want = zero.clone(), zero.clone()
+    before = cuda_lib.LAUNCHES["walk_scatter"]
+    cuda_map.walk_scatter(got, pc, start, postings, k=k, **kw)
+    cuda_map.walk_scatter_plain(want, pc, start, postings, k=k, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["walk_scatter"] == before + 1
+    lanes = int(hw[..., best].sum())
+    assert torch.equal(got, want) and int(got[2:].sum()) == lanes > 0
+    assert (h < 0).any()
+
+
+def _hits_inputs(G, device, seed, B=3_001, J=16, P=300_000, grouped=True, int64=False):
+    """Rows (start, lens) (B, J) int32 over P postings (lengths 0 to 600,
+    two fifths empty), and the postings' genomes: int32 ids in runs of
+    one genome (grouped buckets) or drawn one by one, or int64 global
+    postings carrying them."""
+    rng = np.random.default_rng(seed)
+    if grouped:
+        runs = rng.integers(1, 40, size=P)
+        fids = np.repeat(rng.integers(0, G, size=P), runs)[:P]
+    else:
+        fids = rng.integers(0, G, size=P)
+    start = rng.integers(0, P, size=(B, J)).astype(np.int32)
+    lens = rng.integers(0, 600, size=(B, J)).astype(np.int32)
+    lens[rng.random((B, J)) < 0.4] = 0
+    src = fids.astype(np.int32)
+    if int64:
+        src = ((rng.integers(0, 1 << 30, size=P) << 22) | (fids.astype(np.int64) << 6)
+               | rng.integers(0, 64, size=P))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(start), to(lens), to(src)
+
+
+def _hits_equal_plain(start, lens, src, G):
+    before = cuda_lib.LAUNCHES["walk_hits"]
+    got = cuda_map.walk_hits(start, lens, src, G)
+    want = cuda_map.walk_hits_plain(start, lens, src, G)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["walk_hits"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("G,case", [
+    (4, "grouped"), (32, "grouped"), (32, "ungrouped"), (32, "j13"), (300, "grouped"),
+    (300, "int64"), (20_000, "grouped"), (60_000, "grouped"), (60_000, "int64")])
+def test_walk_hits_equals_plain_on_the_card(gpu, G, case):
+    """Kernel (d) against its plain version, exactly, on each branch: the
+    counters of many k-mers a block in shared memory (G = 4, 32, 300), of
+    one k-mer a block past 48 KB of dynamic shared memory (G = 20,000),
+    and in global memory with atomics (G = 60,000, past 227 KB); int32
+    genome ids in one-genome runs (grouped buckets) or drawn one by one,
+    and int64 global postings; J = 13."""
+    B = 3_001 if G <= 300 else 401
+    start, lens, src = _hits_inputs(G, gpu, G, B=B, J=13 if case == "j13" else 16,
+                                    grouped=case != "ungrouped", int64=case == "int64")
+    got = _hits_equal_plain(start, lens, src, G)
+    cut = torch.minimum(lens, src.shape[0] - start)  # ranges stop at the postings' end
+    assert int(got.sum()) == int(cut.sum()) and int(got.max()) > 1
+
+
+def test_walk_hits_edges_on_the_card(gpu):
+    """(d) on duplicate rows (hits past J), zero-length and negative-start
+    rows, a range past the postings' end (walked up to it), genome ids
+    outside [0, G) (counted nowhere), and a batch whose last block holds
+    fewer k-mers."""
+    start, lens, src = _hits_inputs(32, gpu, 3, B=1_001, P=5_000)
+    P = src.shape[0]
+    start[0], lens[0] = 7, 300
+    start[1, 0], lens[1, 0] = P - 3, 200
+    start[2, 0] = -4
+    src[:40] = torch.tensor([32, -1, 99] * 13 + [5], dtype=torch.int32)
+    got = _hits_equal_plain(start, lens, src, 32)
+    assert int(got[0].max()) >= 16 * 2 and int(got.sum()) < int(lens.sum())
+
+
+def test_walk_hits_walks_a_row_of_2_25_postings(gpu):
+    """(d) on a row of 2^25 postings beside short rows: the block shares it
+    among its threads; the same hits as the plain version."""
+    P = (1 << 25) + 4_096
+    start, lens, _ = _hits_inputs(12, gpu, 11, B=64, P=4_096)
+    rng = np.random.default_rng(11)
+    src = torch.from_numpy(rng.integers(0, 12, size=P).astype(np.int32)).to(gpu)
+    lens[5, 3] = 1 << 25
+    start[5, 3] = 1_000
+    got = _hits_equal_plain(start, lens, src, 12)
+    assert int(got[5].sum()) >= 1 << 25 and int(got.sum()) == int(lens.sum())
+
+
+def _scatter_panel(tmp_path, n, poly_a):
+    rng = np.random.default_rng(n)
+    base = make_genome(rng, 1500)
+    genomes = []
+    for i in range(n):
+        g = bytearray(base)
+        for p in rng.integers(0, len(g), 8):
+            g[p] = b"ACGT"[(b"ACGT".index(g[p]) + 1) % 4]
+        if poly_a:
+            g[1200:1200] = b"A" * 300
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    # 3,000 windows of the base genome (a tenth with one base changed) as
+    # 2-bit k-mer ids, first base highest
+    seq = np.frombuffer(base, np.uint8)
+    win = seq[rng.integers(0, len(seq) - 21, size=3_000)[:, None] + np.arange(21)]
+    codes = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), win).astype(np.uint64)
+    mut = rng.random(codes.shape[0]) < 0.1
+    codes[mut, 10] = (codes[mut, 10] + np.uint64(1)) % np.uint64(4)
+    ids = (codes << (np.uint64(2) * np.arange(20, -1, -1, dtype=np.uint64))).sum(axis=1)
+    return build_index(21, genomes), ids
+
+
+@pytest.mark.parametrize("n,poly_a", [(13, False), (9, True)])
+def test_probe_scatter_on_the_card_equals_the_cpu(gpu, tmp_path, n, poly_a):
+    """map_batch over the whole index (K1, K2, (c) by ranges on the int64
+    global postings and (d) on the same ranges), enqueued under
+    set_sync_debug_mode('error'), and the flat tally likewise: equal to
+    the CPU run, with (c) and (d) launched once each for the batch."""
+    index, ids = _scatter_panel(tmp_path, n, poly_a)
+    counts = np.random.default_rng(n).integers(0, 50, size=ids.shape[0]).astype(np.int32)
+    out = {}
+    for device in (torch.device("cpu"), gpu):
+        dev = build_device_index(index, device)
+        cfg = dev.map_config(2, False)
+        kmers, cts = from_u64(ids, device), torch.from_numpy(counts).to(device)
+        postings, _ = dev.global_postings(), dev.posting_fids()
+        zero = torch.zeros((4, dev.total_len + 1, 4), dtype=torch.int32, device=device)
+        tallies0 = torch.zeros((dev.num_genomes, 3), dtype=torch.int32, device=device)
+        before = dict(cuda_lib.LAUNCHES)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tm.map_batch(kmers, cts, dev.keys_ordered, dev.offsets, postings, zero,
+                               tallies0, cfg=cfg)
+            flat = tm.tally([(kmers, cts)], dev, cfg, "flat")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[device.type] = [t.cpu() for t in (*got, *flat)]
+        if device.type == "cuda":
+            launched = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+            assert launched["walk_scatter"] == 1 and launched["walk_hits"] == 2
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, w)
+    assert int(out["cpu"][1][:, 0].sum()) > 0 and int(out["cpu"][0][2:].sum()) > 0
+
+
+def test_panel_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    """(b) words: int32 words, more genomes than 8W; (c): W int32 words a
+    row; (d): J past 256, lens of another shape, int16 genome ids, G = 0.
+    The C entries refuse B*J >= 2^31 (and (d) J past 256) before reading
+    a pointer."""
+    q, counts, keys, directory, offsets, _, tallies = _probe_inputs("int32_words", gpu, 0,
+                                                                    B=64)
+    hist = _words(np.random.default_rng(0), keys.shape[0], 16, gpu)
+    with pytest.raises(ValueError):
+        cuda_map.probe_tally(q, counts, keys, directory, offsets, hist.to(torch.int32),
+                             tallies)
+    with pytest.raises(ValueError):
+        cuda_map.probe_tally(q, counts, keys, directory, offsets, hist,
+                             torch.zeros((17, 3), dtype=torch.int32, device=gpu))
+    pc, start, _, _, postings, _, zero = _walk_inputs(4, gpu, 0, B=8)
+    h = torch.zeros((*start.shape, 3), dtype=torch.int32, device=gpu)
+    best = torch.zeros(1, dtype=torch.int64, device=gpu)
+    with pytest.raises(ValueError):
+        cuda_map.walk_scatter(zero, pc, start, postings, k=21, h=h, best=best)
+    start, lens, src = _hits_inputs(8, gpu, 0, B=4, J=16)
+    wide = torch.zeros((2, 257), dtype=torch.int32, device=gpu)
+    for args in ((wide, wide, src, 8), (start, lens[:, :3], src, 8),
+                 (start, lens, src.to(torch.int16), 8), (start, lens, src, 0)):
+        with pytest.raises(ValueError):
+            cuda_map.walk_hits(*args)
+    lib = cuda_lib.library()
+    assert lib.bronko_probe_tally_words(0, None, None, 1 << 27, 16, None, 1, None, 0, 0, 0,
+                                        None, None, 4, 32, None, None, None, None, None) != 0
+    assert lib.bronko_probe_tally_words(0, None, None, 8, 16, None, 1, None, 0, 0, 0,
+                                        None, None, 2, 17, None, None, None, None, None) != 0
+    assert lib.bronko_walk_hits(0, None, None, 1 << 27, 16, None, 4, 0, 8, None, None) != 0
+    assert lib.bronko_walk_hits(0, None, None, 4, 257, None, 4, 0, 8, None, None) != 0
+    assert lib.bronko_walk_scatter_words(0, None, 21, 16, None, None, None, 4, 3, None, None,
+                                         4, 0, None, 0, 16, None, 4, None) != 0

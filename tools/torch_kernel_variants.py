@@ -469,6 +469,8 @@ def time_map_kernels(args, dev, st, smi) -> None:
     and the floor for (c); the byte bounds as chip_smoke.py counts them."""
     paths = {}
     libs = build(args.out, "map", *MAP, parent=args.parent, paths=paths)
+    parent_has_directory = args.parent is not None and "def probe_directory" in open(
+        os.path.join(args.parent, "bronko_tpu_torch", "ops", "cuda_map.py")).read()
     for name in libs:
         for line in ptxas_lines(PTXAS[name]):
             print(f"[ptxas {name}] {line}", flush=True)
@@ -503,7 +505,8 @@ def time_map_kernels(args, dev, st, smi) -> None:
         for name, lib in libs.items():
             fn = lib.bronko_probe_tally
             fn.restype = I32
-            if name.startswith("parent"):  # a search over all U keys, no directory
+            if name.startswith("parent") and not parent_has_directory:
+                # a checkout from before the slot directory searches all U keys
                 fn.argtypes = [I32, P, P, I64, I32, P, I64, P, P, I32, I32, P, P, P, P, P]
                 call_args = (0, *ptrs, *tail)
             else:
@@ -548,17 +551,22 @@ def time_map_kernels(args, dev, st, smi) -> None:
         by_best = int(base is not None and base.numel() > 1)
         calls = {}
         for name, lib in libs.items():
-            fn = lib.bronko_walk_scatter
+            # (c) of one word; a checkout from before the multi-word rows
+            # names the entry bronko_walk_scatter and takes no word count
+            words = hasattr(lib, "bronko_walk_scatter_words")
+            fn = lib.bronko_walk_scatter_words if words else lib.bronko_walk_scatter
             fn.restype = I32
-            fn.argtypes = [I32, P, I32, I32, P, P, P, I32, P, P, I32, I64, P, I32, I64, P, I64,
-                           P]
-            call = (lambda fn=fn, postings=postings, base=base, by_best=by_best, rows=rows:
+            fn.argtypes = [I32, P, I32, I32, P, P, P, I32, *([I64] if words else []), P, P,
+                           I32, I64, P, I32, I64, P, I64, P]
+            call = (lambda fn=fn, words=words, postings=postings, base=base, by_best=by_best,
+                    rows=rows:
                     fn(0, rows[0].data_ptr(), k, J, rows[1].data_ptr(),
                        None if rows[2] is None else rows[2].data_ptr(),
                        None if rows[3] is None else rows[3].data_ptr(), h.element_size(),
-                       best_t.data_ptr(), postings.data_ptr(), postings.element_size(),
-                       postings.shape[0], None if base is None else base.data_ptr(), by_best,
-                       rows[1].numel(), pileup.data_ptr(), row_len, st))
+                       *([1] if words else []), best_t.data_ptr(), postings.data_ptr(),
+                       postings.element_size(), postings.shape[0],
+                       None if base is None else base.data_ptr(), by_best, rows[1].numel(),
+                       pileup.data_ptr(), row_len, st))
             pileup.zero_()
             if call() != 0 or not torch.equal(pileup, want):
                 raise SystemExit(f"walk_scatter variant {name!r} failed or differs at {label}")
