@@ -31,8 +31,7 @@ resolve() waits for that copy alone, picks the genome and enqueues
 pass 2; the path is ('words', 'saved'). Every copy goes to page-locked
 memory behind an event, so neither thread waits for the other's work.
 pass1, pass2 and d2h stay wall seconds (each stage's enqueue plus the
-resolve's wait for it); on a card the events' own intervals are kept
-beside them (SampleResult.device_seconds).
+resolve's wait for it).
 
 `run_call` pipelines a cohort as the JAX engine's `_run_call_inner` does
 (engine.py:1449-1717): count workers count and upload the coming samples
@@ -61,6 +60,18 @@ sample's path is (mode, 'streamed'); its `count` stage runs until the
 last partition's pass 1 is enqueued, `h2d` is 0 and `pass1` is the tail
 up to the tallies on the host.
 
+Every stage is timed by a span (utils/spans.py): its wall seconds add
+into the sample's SampleResult.seconds, and under torch.profiler it is a
+`bronko.<name>` range on the thread that ran it. Beside the six STAGES,
+the seconds hold SPAN_KEYS, the parts of `count` (io/native.py: inflate,
+parse, finalize, text_wait; `dispatch`, the streamed path's uploads and
+pass-1 enqueues) and the main thread's wait for the sample's count
+(`count_wait`), so that count ~ inflate - inflate_ahead + text_wait +
+parse + finalize + dispatch. Ranges with no seconds name what a thread
+waits on or works in: `map` (the main thread's device part),
+`caller_wait`, `resolve`, and `sample.<input position>` around each
+thread's share of a sample.
+
 Batching cannot change a result: tallies are sums, the pileup sums and
 maxima. Neither can the pipeline: each sample's device part runs on the
 main thread in input order, and its writers on one thread in that order.
@@ -82,7 +93,7 @@ import pickle
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
-from dataclasses import dataclass, field, fields, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -102,7 +113,7 @@ from bronko_tpu_torch.io.naming import clean_sample_id
 from bronko_tpu_torch.ops.codec import from_u64, kmer_to_string
 from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
-    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, map_fused,
+    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, pass2_fused,
     pileup_from_saved, pileup_from_subindex, tally, tally_save,
 )
 from bronko_tpu_torch.parallel import distributed
@@ -113,10 +124,15 @@ from bronko_tpu_torch.parallel.pipeline import (
     upload_chunk, upload_shard,
 )
 from bronko_tpu_torch.utils.memory import log_memory_usage
+from bronko_tpu_torch.utils.spans import add_seconds, sample_span, span
 
 log = logging.getLogger("bronko")
 
 STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
+# the spans' seconds beside the stages (the module's docstring); 0 where a
+# sample's path has no such span
+SPAN_KEYS = ("inflate", "inflate_ahead", "parse", "finalize", "text_wait", "dispatch",
+             "count_wait")
 
 # cap on the saved pass-1 probe, which stays on the device until pass 2
 # (JAX engine.py:51)
@@ -135,12 +151,9 @@ class SampleResult:
     pileup: np.ndarray | None    # (4, Tg+1, 4) int32, genome-local; None for a
     #                              sample another rank mapped (--shard-samples)
     reads: int                   # reads counted
-    seconds: dict[str, float]    # wall seconds by STAGES
+    seconds: dict[str, float]    # wall seconds by STAGES, then by SPAN_KEYS
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex', 'fused'
     #                              or 'streamed')
-    # the card's own pass1/pass2/d2h seconds between CUDA events, beside
-    # the wall ones, where the device part was enqueued pending on a card
-    device_seconds: dict[str, float] = field(default_factory=dict)
 
 
 def native_lib():
@@ -153,8 +166,9 @@ def native_lib():
 
 
 def count_sample(path: str, cfg: CallConfig, k: int, device: torch.device,
-                 threads: int | None = None,
-                 text=None) -> tuple[np.ndarray, np.ndarray, CountStats]:
+                 threads: int | None = None, text=None,
+                 seconds: dict[str, float] | None = None
+                 ) -> tuple[np.ndarray, np.ndarray, CountStats]:
     """Count one FASTQ's k-mers (KMC -ci/-cs semantics). Returns (ascending
     uint64 k-mers, int64 counts, stats). cfg.counter: 'host' is the native
     counter on `threads` threads (default cfg.threads); 'device' the device
@@ -162,13 +176,14 @@ def count_sample(path: str, cfg: CallConfig, k: int, device: torch.device,
     after any exception from it (a library that fails to build or load, a
     file it rejects), as the JAX engine chooses (engine.py:79-94). `text`
     is the file's inflated text from the inflate-ahead worker (the native
-    counter's only; it closes it)."""
+    counter's only; it closes it). The native counter's spans add their
+    seconds into `seconds`."""
     if cfg.counter in ("auto", "host"):
         try:
             native_lib()
             kmers, counts, st = native.native_count_fastq(
                 path, k, cfg.min_kmers, KMER_COUNT_CAP,
-                threads=max(1, threads or cfg.threads), text=text)
+                threads=max(1, threads or cfg.threads), text=text, seconds=seconds)
         except Exception as e:  # noqa: BLE001 — auto: any native failure
             if cfg.counter == "host":
                 raise
@@ -217,41 +232,47 @@ class Counted:
     counts: np.ndarray           # int64
     cstats: CountStats
     batches: list | None         # device batches (upload=True), else None
-    seconds: dict[str, float]    # 'count', and 'h2d' when uploaded
+    seconds: dict[str, float]    # 'count' and its parts, and 'h2d' when uploaded
 
 
 def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
                threads: int | None = None, texts: list | None = None,
-               upload: bool = False) -> Counted:
+               upload: bool = False, pos: int | None = None) -> Counted:
     """Count one sample: single-end [r], or paired [r1, r2] concatenated.
     `texts` holds one inflate-ahead future (or None) a path; every buffer
     is closed here, so a failed mate never pins its sibling's (JAX
     engine.py:1392-1405). With upload=True the device batches are built
-    here too, on the calling worker thread."""
-    t0 = time.perf_counter()
-    try:
-        parts = [count_sample(
-            p, cfg, k, device, threads=threads,
-            text=texts[i].result() if texts and texts[i] is not None else None)
-            for i, p in enumerate(paths)]
-    finally:
-        for f in texts or []:
-            if f is not None:
-                try:
-                    f.result().close()
-                except Exception:  # noqa: BLE001 — the inflate itself failed
-                    pass
-    kmers = np.concatenate([p[0] for p in parts])
-    counts = np.concatenate([p[1] for p in parts])
-    cstats = CountStats(**{f.name: sum(getattr(p[2], f.name) for p in parts)
-                           for f in fields(CountStats)})
-    t1 = time.perf_counter()
-    seconds = {"count": t1 - t0}
-    batches = None
-    if upload:
-        # a copy from pageable host memory returns once it is done
-        batches = to_batches(kmers, counts, cfg.batch_size, device)
-        seconds["h2d"] = time.perf_counter() - t1
+    here too, on the calling worker thread. `pos` is the sample's input
+    position, for its range in a trace."""
+    seconds: dict[str, float] = {}
+    with sample_span(pos):
+        with span("count", seconds):
+            try:
+                parts = []
+                for i, p in enumerate(paths):
+                    text = None
+                    if texts and texts[i] is not None:
+                        with span("count.text_wait", seconds, "text_wait"):
+                            text = texts[i].result()
+                    parts.append(count_sample(p, cfg, k, device, threads=threads, text=text,
+                                              seconds=seconds))
+            finally:
+                for f in texts or []:
+                    if f is not None:
+                        try:
+                            f.result().close()
+                        except Exception:  # noqa: BLE001 — the inflate itself failed
+                            pass
+            with span("count.finalize", seconds, "finalize"):
+                kmers = np.concatenate([p[0] for p in parts])
+                counts = np.concatenate([p[1] for p in parts])
+            cstats = CountStats(**{f.name: sum(getattr(p[2], f.name) for p in parts)
+                                   for f in fields(CountStats)})
+        batches = None
+        if upload:
+            # a copy from pageable host memory returns once it is done
+            with span("h2d", seconds):
+                batches = to_batches(kmers, counts, cfg.batch_size, device)
     return Counted(kmers, counts, cstats, batches, seconds)
 
 
@@ -394,68 +415,34 @@ class Mapped:
     pileup: np.ndarray
     path: tuple[str, str]
     seconds: dict[str, float]     # 'pass1', 'pass2', 'd2h', and 'h2d' if done here
-    # the card's own 'pass1', 'pass2', 'd2h' between CUDA events, on the
-    # pending paths on a card (_Stages.device)
-    device_seconds: dict[str, float] = field(default_factory=dict)
 
 
 class _Stages:
-    """A pending sample's pass1 / pass2 / d2h seconds, kept two ways.
-
-    `host`: wall seconds by stage, as the classic path keeps them: each
-    stage's enqueue on the main thread plus the caller thread's wait for
-    its result in resolve(), so they add up, with the other stages, to
-    the sample's own time. The time the pending sample waits for the
-    caller thread lies in no stage, as the classic path's wait between
-    the threads does not.
-
-    `device_seconds()` (on a card only): the card's time between CUDA
-    events recorded at the same boundaries on the shared current stream.
-    Work the other thread enqueued between two events counts in that
-    interval."""
+    """A pending sample's pass1 / pass2 / d2h: `host`, wall seconds by
+    stage, as the classic path keeps them: each stage's enqueue on the
+    main thread plus the caller thread's wait for its result in
+    resolve(), so they add up, with the other stages, to the sample's own
+    time. The time the pending sample waits for the caller thread lies in
+    no stage, as the classic path's wait between the threads does not.
+    On a card, an event recorded on the shared current stream as each
+    stage is enqueued lets the caller thread wait for that stage alone."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.host = {"pass1": 0.0, "pass2": 0.0, "d2h": 0.0}
         self.events: dict = {}
-        self.restart()
-        self.record("start")
-
-    def restart(self) -> None:
-        """Start timing a stretch on the calling thread."""
-        self.t = time.perf_counter()
 
     def record(self, name: str) -> None:
         """On a card, record event `name` on the current stream."""
         if self.device.type == "cuda":
-            self.events[name] = torch.cuda.Event(enable_timing=True)
+            self.events[name] = torch.cuda.Event()
             self.events[name].record(torch.cuda.current_stream(self.device))
 
-    def lap(self, stage: str) -> None:
-        """Charge the host wall since the last restart or lap to `stage`."""
-        now = time.perf_counter()
-        self.host[stage] += now - self.t
-        self.t = now
-
-    def end(self, stage: str) -> None:
-        """`stage` is enqueued: charge its host wall and record its event."""
-        self.lap(stage)
-        self.record(stage)
-
-    def wait(self, name: str, stage: str | None = None) -> None:
+    def wait(self, name: str) -> None:
         """Block the calling thread until the work before event `name` is
-        done (the event alone, not work enqueued after it), charging the
-        wait to `stage` (default `name`)."""
+        done (the event alone, not work enqueued after it)."""
         if self.device.type == "cuda":
             self.events[name].synchronize()
-        self.lap(stage or name)
-
-    def device_seconds(self, *pairs) -> dict[str, float]:
-        """{stage: seconds between its two events} for (stage, first, last)."""
-        if self.device.type != "cuda":
-            return {}
-        return {stage: self.events[first].elapsed_time(self.events[last]) / 1e3
-                for stage, first, last in pairs}
 
 
 def _copy_to_host(t: torch.Tensor) -> torch.Tensor:
@@ -490,23 +477,22 @@ class _Pending:
         """The host's side of pass 1 once its copy is in: the tallies and
         walk lengths (meta's last `tail` words left aside), the log line
         and the host pick, charged to pass1."""
-        G = dev.num_genomes
-        meta = self.meta_host.numpy()
-        tallies = meta[:3 * G].reshape(G, 3).copy()
-        walks = meta[3 * G:meta.shape[0] - tail].reshape(-1, G)
-        log.info("Tallied %d kmers in %.2fs%s", self.n_kmers,
-                 time.perf_counter() - self.t_start, note)
-        best, triple = _select_and_log(tallies, index, dev, self.cstats)
-        self.stages.lap("pass1")
+        with span("pass1", self.stages.host):
+            G = dev.num_genomes
+            meta = self.meta_host.numpy()
+            tallies = meta[:3 * G].reshape(G, 3).copy()
+            walks = meta[3 * G:meta.shape[0] - tail].reshape(-1, G)
+            log.info("Tallied %d kmers in %.2fs%s", self.n_kmers,
+                     time.perf_counter() - self.t_start, note)
+            best, triple = _select_and_log(tallies, index, dev, self.cstats)
         return tallies, walks[:, best].tolist(), best, triple
 
     def _pass2(self, dev: DeviceIndex, walk: list, best: int) -> torch.Tensor:
         return pileup_from_saved(self.batches, self.saved, walk, dev.pass2_postings(), best,
                                  self.mcfg, dev.g_total_len, int(dev.file_bases[best]))
 
-    def _mapped(self, best, triple, tallies, pileup, path, *pairs) -> Mapped:
-        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host},
-                      self.stages.device_seconds(*pairs))
+    def _mapped(self, best, triple, tallies, pileup, path) -> Mapped:
+        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host})
 
 
 @dataclass
@@ -514,81 +500,82 @@ class PendingMap(_Pending):
     """Pass 1 with the saved probe on the multi-word histogram (JAX
     engine.py:884-913). resolve() waits for the copy of pass 1 alone,
     picks the genome on the host, enqueues pass 2 and the pileup's copy,
-    and waits for each. Marks: start, pass1 (the copy enqueued), then
-    select, pass2, d2h."""
+    and waits for each. Events: pass1 (the copy enqueued), then pass2,
+    d2h."""
 
     def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
-        self.stages.restart()
-        self.stages.wait("pass1")
+        with span("pass1", self.stages.host):
+            self.stages.wait("pass1")
         tallies, walk, best, triple = self._select(index, dev, 0)
-        self.stages.record("select")
-        t1 = time.perf_counter()
-        pileup_t = self._pass2(dev, walk, best)
-        self.stages.end("pass2")
-        self.stages.wait("pass2")
-        log.info("Scattered pileup in %.2fs", time.perf_counter() - t1)
-        pileup = _copy_to_host(pileup_t)
-        self.stages.end("d2h")
-        self.stages.wait("d2h")
+        with span("pass2", self.stages.host) as sp:
+            pileup_t = self._pass2(dev, walk, best)
+            self.stages.record("pass2")
+            self.stages.wait("pass2")
+        with span("d2h", self.stages.host):
+            log.info("Scattered pileup in %.2fs", sp.elapsed())
+            pileup = _copy_to_host(pileup_t)
+            self.stages.record("d2h")
+            self.stages.wait("d2h")
         return self._mapped(best, triple, tallies, pileup.numpy().copy(),
-                            (dev.tally_mode(), "saved"), ("pass1", "start", "pass1"),
-                            ("pass2", "select", "pass2"), ("d2h", "pass2", "d2h"))
+                            (dev.tally_mode(), "saved"))
 
 
 @dataclass
 class PendingFused(_Pending):
     """Both passes and the genome pick on the device, enqueued at once
-    (ops/map.map_fused; JAX engine.py:809-839 and :924-980), then the
-    copies of meta (with the device pick last) and of the pileup.
-    resolve() waits for the copies, picks the genome on the host and,
-    should the two picks differ (they cannot: the score is the same f64
-    division), logs JAX's line and walks pass 2 again for the host's
-    pick, its host wall charged to pass2. Marks: start, pass1, pass2,
-    d2h (the copies enqueued)."""
+    (ops/map.map_fused's pieces; JAX engine.py:809-839 and :924-980),
+    then the copies of meta (with the device pick last) and of the
+    pileup. resolve() waits for the copies, picks the genome on the host
+    and, should the two picks differ (they cannot: the score is the same
+    f64 division), logs JAX's line and walks pass 2 again for the host's
+    pick, its host wall charged to pass2. Events: pass1, pass2, d2h (the
+    copies enqueued)."""
     pileup: torch.Tensor = None       # (4, Tg+1, 4) int32 of the device pick; held until copied
     pileup_host: torch.Tensor = None
 
     def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
-        self.stages.restart()
         for stage in ("pass1", "pass2", "d2h"):
-            self.stages.wait(stage)
+            with span(stage, self.stages.host):
+                self.stages.wait(stage)
         tallies, walk, best, triple = self._select(index, dev, 1, " (fused)")
         if int(self.meta_host[-1]) == best:
             pileup = self.pileup_host.numpy().copy()
         else:
             log.info("fused pass-2 budget overflowed or selection guard tripped; re-running "
                      "pass 2 with the exact budget")
-            t1 = time.perf_counter()
-            host = _copy_to_host(self._pass2(dev, walk, best))
-            self.stages.record("guard")
-            self.stages.wait("guard", "pass2")
+            with span("pass2", self.stages.host) as sp:
+                host = _copy_to_host(self._pass2(dev, walk, best))
+                self.stages.record("guard")
+                self.stages.wait("guard")
             pileup = host.numpy().copy()
-            log.info("Scattered pileup in %.2fs", time.perf_counter() - t1)
-        return self._mapped(best, triple, tallies, pileup, ("hist", "fused"),
-                            ("pass1", "start", "pass1"), ("pass2", "pass1", "pass2"),
-                            ("d2h", "pass2", "d2h"))
+            log.info("Scattered pileup in %.2fs", sp.elapsed())
+        return self._mapped(best, triple, tallies, pileup, ("hist", "fused"))
 
 
 def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountStats,
                    t_start: float, seconds: dict) -> PendingMap | PendingFused:
     """The single-device path with the saved probe, enqueued with no host
     sync (JAX engine.py:801-881): every stage fused on the single
-    histogram word (map_fused), pass 1 alone on the multi-word one."""
+    histogram word (ops/map.map_fused's tally_save and pass2_fused), pass
+    1 alone on the multi-word one."""
     stages = _Stages(dev.device)
-    if dev.hist is None:
+    with span("pass1", stages.host):
         tallies, lanes, saved = tally_save(batches, dev, mcfg)
-        meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1)])
-        meta_host = _copy_to_host(meta)
-        stages.end("pass1")
+        if dev.hist is None:
+            meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1)])
+            meta_host = _copy_to_host(meta)
+    stages.record("pass1")
+    if dev.hist is None:
         return PendingMap(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
                           t_start, seconds)
-    tallies, lanes, best, saved, pileup = map_fused(
-        batches, dev, mcfg, dev.glen2_t(), dev.file_bases_t(),
-        after_pass1=lambda: stages.end("pass1"))
-    stages.end("pass2")
-    meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1), best])
-    meta_host, pileup_host = _copy_to_host(meta), _copy_to_host(pileup)
-    stages.end("d2h")
+    with span("pass2", stages.host):
+        best, pileup = pass2_fused(batches, saved, tallies, dev, mcfg, dev.glen2_t(),
+                                   dev.file_bases_t())
+    stages.record("pass2")
+    with span("d2h", stages.host):
+        meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1), best])
+        meta_host, pileup_host = _copy_to_host(meta), _copy_to_host(pileup)
+    stages.record("d2h")
     return PendingFused(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
                         t_start, seconds, pileup, pileup_host)
 
@@ -602,68 +589,74 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     resolves. Otherwise (the sub-index pass 2, or a mapper: --mesh, whose
     collectives run on this thread) it returns the Mapped sample: pass 1,
     selection, pass 2 and d2h, the device synced at every stage boundary.
-    h2d is done here unless a count worker uploaded the batches."""
-    seconds = {}
-    device = dev.device if mapper is None else mapper.device
-    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-    # no bucket survives the trim: nothing to map
-    n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
-    t = [time.perf_counter()]
-    batches = counted.batches
-    if batches is None:
-        kmers, counts = counted.kmers[:n_kmers], counted.counts[:n_kmers]
-        batches = (to_batches(kmers, counts, cfg.batch_size, device) if mapper is None
-                   else mapper.place_batches(kmers, counts, cfg.batch_size))
-        _sync(device)
-        seconds["h2d"] = time.perf_counter() - t[0]
-    if mapper is None and saves_probe(dev, n_kmers, len(mcfg.positions)):
-        return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t[0], seconds)
-    t = [time.perf_counter()]
+    h2d is done here unless a count worker uploaded the batches. All of
+    it runs in the range `map`."""
+    with span("map"):
+        seconds: dict[str, float] = {}
+        device = dev.device if mapper is None else mapper.device
+        mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+        # no bucket survives the trim: nothing to map
+        n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
+        t_start = time.perf_counter()  # the log's "Tallied" counts from here
+        batches = counted.batches
+        if batches is None:
+            with span("h2d", seconds):
+                kmers, counts = counted.kmers[:n_kmers], counted.counts[:n_kmers]
+                batches = (to_batches(kmers, counts, cfg.batch_size, device) if mapper is None
+                           else mapper.place_batches(kmers, counts, cfg.batch_size))
+                _sync(device)
+        if mapper is None and saves_probe(dev, n_kmers, len(mcfg.positions)):
+            return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t_start, seconds)
 
-    p1 = (run_pass1(batches, dev, mcfg) if mapper is None
-          else mapper.run_tallies(batches, mcfg))
-    log.info("Tallied %d kmers in %.2fs", n_kmers, time.perf_counter() - t[-1])
-    best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
-    t.append(time.perf_counter())
-
-    pileup_t = (run_pass2(batches, dev, mcfg, p1, best) if mapper is None
-                else mapper.run_pileup(batches, mcfg, best, dev.g_total_len))
-    _sync(device)
-    log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
-    t.append(time.perf_counter())
-    pileup = pileup_t.cpu().numpy()
-    t.append(time.perf_counter())
-    seconds.update(pass1=t[1] - t[0], pass2=t[2] - t[1], d2h=t[3] - t[2])
-    return Mapped(best, triple, p1.tallies, pileup, p1.path, seconds)
+        with span("pass1", seconds) as sp:
+            p1 = (run_pass1(batches, dev, mcfg) if mapper is None
+                  else mapper.run_tallies(batches, mcfg))
+            log.info("Tallied %d kmers in %.2fs", n_kmers, sp.elapsed())
+            best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
+        with span("pass2", seconds) as sp:
+            pileup_t = (run_pass2(batches, dev, mcfg, p1, best) if mapper is None
+                        else mapper.run_pileup(batches, mcfg, best, dev.g_total_len))
+            _sync(device)
+            log.info("Scattered pileup in %.2fs", sp.elapsed())
+        with span("d2h", seconds):
+            pileup = pileup_t.cpu().numpy()
+        return Mapped(best, triple, p1.tallies, pileup, p1.path, seconds)
 
 
 def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
-              mapped, reads: int, seconds: dict[str, float]) -> SampleResult:
+              mapped, reads: int, seconds: dict[str, float],
+              pos: int | None = None) -> SampleResult:
     """Step 6 for one sample (the caller thread's work), timed there, after
     resolving a pending device part (JAX engine.py:1037-1040); `seconds`
-    holds the stages timed elsewhere."""
-    if isinstance(mapped, (PendingMap, PendingFused)):
-        mapped = mapped.resolve(index, dev)
-    t0 = time.perf_counter()
-    summary, records = _finish_one(display, index, dev, cfg, mapped.best, mapped.pileup,
-                                   mapped.triple)
-    seconds = {**seconds, **mapped.seconds, "call": time.perf_counter() - t0}
-    return SampleResult(summary, records, mapped.tallies, mapped.best, mapped.pileup,
-                        reads, {s: seconds[s] for s in STAGES}, mapped.path,
-                        mapped.device_seconds)
+    holds the stages timed elsewhere. `pos` is the sample's input
+    position, for its range in a trace."""
+    own: dict[str, float] = {}
+    with sample_span(pos):
+        if isinstance(mapped, (PendingMap, PendingFused)):
+            with span("resolve"):
+                mapped = mapped.resolve(index, dev)
+        with span("call", own):
+            summary, records = _finish_one(display, index, dev, cfg, mapped.best,
+                                           mapped.pileup, mapped.triple)
+    seconds = {**seconds, **mapped.seconds, **own}
+    return SampleResult(summary, records, mapped.tallies, mapped.best, mapped.pileup, reads,
+                        {**{s: seconds[s] for s in STAGES},
+                         **{s: seconds.get(s, 0.0) for s in SPAN_KEYS}},
+                        mapped.path)
 
 
 def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
                    cfg: CallConfig) -> SampleResult:
     """The whole main path for one sample (single-end [r] or paired
     [r1, r2]), in series: the cohort pipeline's pieces on one thread."""
-    counted = _count_job(job, cfg, index.k, dev.device)
-    _log_counted(job[0], counted.cstats, cfg, index.k)
-    if cfg.keep_kmer_counts:
-        _dump_counts(job[0], counted, cfg, index.k)
-    mapped = _map_one(counted, index, dev, cfg)
-    return _call_one(job[0], index, dev, cfg, mapped, counted.cstats.total_reads,
-                     counted.seconds)
+    with sample_span(0):
+        counted = _count_job(job, cfg, index.k, dev.device)
+        _log_counted(job[0], counted.cstats, cfg, index.k)
+        if cfg.keep_kmer_counts:
+            _dump_counts(job[0], counted, cfg, index.k)
+        mapped = _map_one(counted, index, dev, cfg)
+        return _call_one(job[0], index, dev, cfg, mapped, counted.cstats.total_reads,
+                         counted.seconds)
 
 
 def probe_bytes_per_query(dev: DeviceIndex) -> int | None:
@@ -901,12 +894,9 @@ class PendingStream:
     cstats: CountStats
     t_start: float             # the count began
     t_enqueued: float          # the last partition's pass 1 was enqueued
-
-    @property
-    def seconds(self) -> dict[str, float]:
-        """The stages before resolve(): the count, with every partition's
-        upload and pass-1 dispatch inside it, so h2d is 0."""
-        return {"count": self.t_enqueued - self.t_start, "h2d": 0.0}
+    # the stages before resolve(): the count and its parts, with every
+    # partition's upload and pass-1 dispatch inside it (`dispatch`), so h2d is 0
+    seconds: dict[str, float]
 
     def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
         """Tallies and every partition's walk lengths in one host copy, the
@@ -914,18 +904,30 @@ class PendingStream:
         (pileup_from_saved), the others through the genome's sub-index
         (pileup_from_subindex) with the exact walk lengths of their own
         pass 1. Two pileups merge plane by plane: depth max, counts add
-        (JAX engine.py:1077-1134)."""
+        (JAX engine.py:1077-1134). pass1 runs from the last partition's
+        enqueue to the selection."""
         G = dev.num_genomes
-        host = torch.cat([self.tallies.to(torch.int64).reshape(-1)]
-                         + [lanes.reshape(-1) for _, lanes, _ in self.parts]).cpu().numpy()
-        tallies = host[:3 * G].reshape(G, 3)
-        walks = np.split(host[3 * G:].reshape(-1, G),
-                         np.cumsum([len(b) for b, _, _ in self.parts])[:-1])
-        log.info("Tallied %d kmers in %.2fs (streamed)", self.n_kmers,
-                 time.perf_counter() - self.t_start)
-        best, triple = _select_and_log(tallies, index, dev, self.cstats)
-        t = [self.t_enqueued, time.perf_counter()]
+        seconds: dict[str, float] = {}
+        with span("pass1", seconds) as sp:
+            host = torch.cat([self.tallies.to(torch.int64).reshape(-1)]
+                             + [lanes.reshape(-1) for _, lanes, _ in self.parts]).cpu().numpy()
+            tallies = host[:3 * G].reshape(G, 3)
+            walks = np.split(host[3 * G:].reshape(-1, G),
+                             np.cumsum([len(b) for b, _, _ in self.parts])[:-1])
+            log.info("Tallied %d kmers in %.2fs (streamed)", self.n_kmers,
+                     time.perf_counter() - self.t_start)
+            best, triple = _select_and_log(tallies, index, dev, self.cstats)
+        add_seconds(seconds, "pass1", sp.t0 - self.t_enqueued)
+        with span("pass2", seconds) as sp:
+            pileup_t = self._pass2(dev, walks, best)
+            _sync(dev.device)
+            log.info("Scattered pileup in %.2fs", sp.elapsed())
+        with span("d2h", seconds):
+            pileup = pileup_t.cpu().numpy()
+        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"), seconds)
 
+    def _pass2(self, dev: DeviceIndex, walks: list, best: int) -> torch.Tensor:
+        """Genome `best`'s pileup on the device from every partition."""
         groups = {True: ([], [], []), False: ([], [], [])}  # saved: batches, probe, walk
         for (batches, _, saved), walk in zip(self.parts, walks):
             b, probe, w = groups[saved is not None]
@@ -945,15 +947,8 @@ class PendingStream:
         if len(pileups) == 2:
             a, b = pileups
             pileups = [torch.cat([torch.maximum(a[:2], b[:2]), a[2:] + b[2:]])]
-        pileup_t = pileups[0] if pileups else torch.zeros(
+        return pileups[0] if pileups else torch.zeros(
             (4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
-        _sync(dev.device)
-        log.info("Scattered pileup in %.2fs", time.perf_counter() - t[-1])
-        t.append(time.perf_counter())
-        pileup = pileup_t.cpu().numpy()
-        t.append(time.perf_counter())
-        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"),
-                      dict(pass1=t[1] - t[0], pass2=t[2] - t[1], d2h=t[3] - t[2]))
 
 
 def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
@@ -966,44 +961,49 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
     ranges and tallies are sums, so the result is the classic path's.
     While the probe bytes of the partitions so far stay within
     PROBE_BYTES_CAP a partition saves its probe (tally_save); past it, it
-    tallies without (tally) and pass 2 re-probes the sub-index."""
-    t0 = time.perf_counter()
-    device = dev.device
-    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-    J = len(mcfg.positions)
-    per_q = probe_bytes_per_query(dev)
-    acc = torch.zeros((dev.num_genomes, 3), dtype=torch.int32, device=device)
-    parts = []
-    totals = dict.fromkeys((f.name for f in fields(CountStats)), 0)
-    n_kmers = saved_bytes = 0
-    for kmers, counts, stats in native.native_count_fastq_stream(
-            paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads):
-        if stats is not None:
-            for f in totals:
-                totals[f] += stats[f]
-        if kmers.shape[0] == 0:
-            continue
-        n_kmers += kmers.shape[0]
-        batches = _upload_async(kmers, counts, cfg.batch_size, device)
-        saved_bytes += kmers.shape[0] * J * per_q
-        if saved_bytes <= PROBE_BYTES_CAP:
-            tallies, lanes, saved = tally_save(batches, dev, mcfg)
-        else:
-            (tallies, lanes), saved = tally(batches, dev, mcfg, dev.tally_mode()), None
-        acc += tallies
-        parts.append((batches, lanes, saved))
-    t1 = time.perf_counter()
+    tallies without (tally) and pass 2 re-probes the sub-index. The
+    count's parts go into the sample's seconds (io/native.py), each
+    partition's upload and enqueue into `dispatch`."""
+    seconds = {"h2d": 0.0}
+    with span("count", seconds) as count_span:
+        device = dev.device
+        mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+        J = len(mcfg.positions)
+        per_q = probe_bytes_per_query(dev)
+        acc = torch.zeros((dev.num_genomes, 3), dtype=torch.int32, device=device)
+        parts = []
+        totals = dict.fromkeys((f.name for f in fields(CountStats)), 0)
+        n_kmers = saved_bytes = 0
+        for kmers, counts, stats in native.native_count_fastq_stream(
+                paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads,
+                seconds=seconds):
+            if stats is not None:
+                for f in totals:
+                    totals[f] += stats[f]
+            if kmers.shape[0] == 0:
+                continue
+            with span("stream.dispatch", seconds, "dispatch"):
+                n_kmers += kmers.shape[0]
+                batches = _upload_async(kmers, counts, cfg.batch_size, device)
+                saved_bytes += kmers.shape[0] * J * per_q
+                if saved_bytes <= PROBE_BYTES_CAP:
+                    tallies, lanes, saved = tally_save(batches, dev, mcfg)
+                else:
+                    (tallies, lanes), saved = tally(batches, dev, mcfg, dev.tally_mode()), None
+                acc += tallies
+                parts.append((batches, lanes, saved))
     cstats = CountStats(**totals)
     log.info("%d reads counted from %s (streamed)", cstats.total_reads, paths[0])
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs); dispatched in %.2fs",
         cstats.unique_counted_kmers, cfg.min_kmers, cstats.unique_kmers,
-        cstats.total_kmers, cstats.total_kmers * index.k, t1 - t0)
+        cstats.total_kmers, cstats.total_kmers * index.k, seconds["count"])
     log.info("Streamed %d partition(s), %d with a saved probe", len(parts),
              sum(saved is not None for *_, saved in parts))
     log_memory_usage("Finished counting kmers", device)
-    return PendingStream(acc, parts, mcfg, n_kmers, cstats, t0, t1)
+    return PendingStream(acc, parts, mcfg, n_kmers, cstats, count_span.t0, count_span.t1,
+                         seconds)
 
 
 class ShardedMapper:
@@ -1167,9 +1167,10 @@ def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
     input order; raises SystemExit(1) when every sample failed. `device`
     (default dev.device) counts and maps; under --mesh `dev` may stay on
     the host. With cfg.profile_dir the run is traced by torch.profiler
-    (the device's kernels too on a CUDA device) into a Chrome trace there,
-    written even when the run fails; a profiler that fails to start or
-    stop only warns, as the JAX engine's does (engine.py:1427-1446)."""
+    (every thread, and the device's kernels too on a CUDA device) into a
+    Chrome trace there, written even when the run fails; a profiler that
+    fails to start or stop only warns, as the JAX engine's does
+    (engine.py:1427-1446). tools/torch_idle_by_span.py reads the trace."""
     device = dev.device if device is None else device
     prof = None
     if cfg.profile_dir:
@@ -1193,11 +1194,20 @@ def run_call(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
 
 
 def _start_profiler(profile_dir: str, device: torch.device):
+    """A started torch.profiler recording every thread: the count workers,
+    the inflate-ahead worker and the caller thread besides this one. A
+    torch whose profiler lacks that option records this thread alone,
+    with a warning."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
+    try:
+        config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError) as e:
+        log.warning("the profiler records the main thread only (%s)", e)
+        config = None
+    prof = torch.profiler.profile(activities=activities, experimental_config=config)
     prof.start()
     return prof
 
@@ -1333,6 +1343,13 @@ def _run_call_inner(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex,
     return results
 
 
+def _inflate_ahead(path: str, release, pos: int) -> native.InflatedText:
+    """The inflate-ahead worker's read and inflate of one file of the
+    sample at input `pos`."""
+    with sample_span(pos):
+        return native.native_read_inflate(path, release)
+
+
 def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: torch.device,
               mapper: ShardedMapper | None, jobs: list[list[str]], job_ids: list[int]):
     """The cohort pipeline over `jobs` (global input positions `job_ids`).
@@ -1363,16 +1380,16 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
 
         def submit_upto(n: int) -> None:
             while len(futures) < min(n, len(jobs)):
-                job = jobs[len(futures)]
+                job, pos = jobs[len(futures)], job_ids[len(futures)]
                 texts = None
                 if budget is not None:
                     texts = []
                     for p in job:
                         release = budget.charge(p)
                         texts.append(None if release is None else inflate_pool.submit(
-                            native.native_read_inflate, p, release))
+                            _inflate_ahead, p, release, pos))
                 futures.append(pool.submit(_count_job, job, cfg, index.k, device,
-                                           threads, texts, upload))
+                                           threads, texts, upload, pos))
 
         if stream_first:
             futures.append(None)  # the first job counts here, not on a worker
@@ -1380,12 +1397,14 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
             label = job[0] if len(job) == 1 else f"{job[0]}, {job[1]}"
             log.info("Processing %s (streamed)", label)
             try:
-                pending = _stream_pass1(job, index, dev, cfg, host_threads)
-                submit_upto(1 + workers)
-                mapped = pending.resolve(index, dev)
+                with sample_span(job_ids[0]):
+                    pending = _stream_pass1(job, index, dev, cfg, host_threads)
+                    submit_upto(1 + workers)
+                    with span("resolve"):
+                        mapped = pending.resolve(index, dev)
                 call_futs.append((label, job[0], job_ids[0], call_pool.submit(
                     _call_one, job[0], index, dev, cfg, mapped,
-                    pending.cstats.total_reads, pending.seconds)))
+                    pending.cstats.total_reads, pending.seconds, job_ids[0])))
             except Exception:  # noqa: BLE001 — per-sample isolation
                 log.exception("Sample %s failed; continuing with remaining samples", label)
                 failures.append(job[0])
@@ -1401,19 +1420,24 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
             label = display if len(job) == 1 else f"{job[0]}, {job[1]}"
             log.info("Processing %s", label)
             try:
-                counted = fut.result()
-                _log_counted(display, counted.cstats, cfg, index.k)
-                log_memory_usage("Finished counting kmers", device)
-                if cfg.keep_kmer_counts and (is_primary() or cfg.shard_samples):
-                    _dump_counts(display, counted, cfg, index.k)
-                mapped = _map_one(counted, index, dev, cfg, mapper)
-                # the caller thread runs this sample while the next one
-                # maps; at most 2 samples wait for it
-                if len(call_futs) >= 2:
-                    wait([call_futs[-2][3]])
-                call_futs.append((label, display, job_ids[ji], call_pool.submit(
-                    _call_one, display, index, dev, cfg, mapped,
-                    counted.cstats.total_reads, counted.seconds)))
+                with sample_span(job_ids[ji]):
+                    waited: dict[str, float] = {}
+                    with span("count_wait", waited):
+                        counted = fut.result()
+                    counted.seconds.update(waited)
+                    _log_counted(display, counted.cstats, cfg, index.k)
+                    log_memory_usage("Finished counting kmers", device)
+                    if cfg.keep_kmer_counts and (is_primary() or cfg.shard_samples):
+                        _dump_counts(display, counted, cfg, index.k)
+                    mapped = _map_one(counted, index, dev, cfg, mapper)
+                    # the caller thread runs this sample while the next one
+                    # maps; at most 2 samples wait for it
+                    if len(call_futs) >= 2:
+                        with span("caller_wait"):
+                            wait([call_futs[-2][3]])
+                    call_futs.append((label, display, job_ids[ji], call_pool.submit(
+                        _call_one, display, index, dev, cfg, mapped,
+                        counted.cstats.total_reads, counted.seconds, job_ids[ji])))
             except Exception:  # noqa: BLE001 — per-sample isolation
                 log.exception("Sample %s failed; continuing with remaining samples", label)
                 failures.append(display)
@@ -1421,7 +1445,9 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
 
         for label, display, job_id, cf in call_futs:
             try:
-                results.append(cf.result())
+                with span("caller_wait"):
+                    res = cf.result()
+                results.append(res)
                 result_ids.append(job_id)
                 log_memory_usage("Called variants successfully", device)
             except Exception:  # noqa: BLE001 — per-sample isolation

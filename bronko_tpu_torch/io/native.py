@@ -10,7 +10,15 @@ implementations when it is unavailable.
 `native_read_inflate` reads and inflates one FASTQ into a C++-owned buffer
 (`InflatedText`) that `native_count_fastq(..., text=)` then counts: the
 engine's inflate-ahead worker overlaps one sample's single-threaded inflate
-with another's multi-threaded parse and count.
+with another's multi-threaded parse and count. A file given by its path
+alone is read and inflated the same way, then counted, so every count
+splits into the same spans (utils/spans.py), whose seconds add into the
+caller's `seconds` dict: `inflate` (read and inflate, on whatever thread
+ran it; `inflate_ahead` the share another thread ran), `parse` (the
+multi-threaded parse and hash count), `finalize` (merge, sort, floor and
+cap, extract) and, on the streamed path, `text_wait` (blocked on the next
+mate's prefetch). A file past the whole-buffer cap is inflated by the C++
+streaming fallback inside its count, so its inflate falls in `parse`.
 
 `native_count_fastq_stream` yields a sample's counted k-mers one key-range
 partition at a time, for the engine's streamed single-sample path.
@@ -23,8 +31,11 @@ import logging
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
+
+from bronko_tpu_torch.utils.spans import add_seconds, span
 
 log = logging.getLogger("bronko")
 
@@ -121,11 +132,13 @@ class InflatedText:
     `handle` is None when the file was over the whole-buffer cap or could
     not be read: the counter then reads the path itself. `on_close` fires
     once, at the first close() (the engine returns the buffer's bytes to
-    its inflate-ahead budget there); close() is idempotent."""
+    its inflate-ahead budget there); close() is idempotent. `seconds` is
+    the wall the read and inflate took on the thread that ran it."""
 
-    def __init__(self, handle, size: int, on_close=None):
+    def __init__(self, handle, size: int, on_close=None, seconds: float = 0.0):
         self.handle = handle
         self.size = size
+        self.seconds = seconds
         self._on_close = on_close
 
     def close(self):
@@ -145,15 +158,45 @@ class InflatedText:
 
 def native_read_inflate(path: str, on_close=None) -> InflatedText:
     """Read and inflate one FASTQ on the calling thread (the C call
-    releases the GIL)."""
+    releases the GIL), in the span `count.inflate`."""
     lib = get_lib()
     assert lib is not None
     size = ctypes.c_int64()
-    try:
-        h = lib.bronko_read_inflate(path.encode(), ctypes.byref(size))
-    except Exception:  # noqa: BLE001 — the counter reads the path instead
-        h = None
-    return InflatedText(h, int(size.value), on_close=on_close)
+    t0 = time.perf_counter()
+    with span("count.inflate"):
+        try:
+            h = lib.bronko_read_inflate(path.encode(), ctypes.byref(size))
+        except Exception:  # noqa: BLE001 — the counter reads the path instead
+            h = None
+    return InflatedText(h, int(size.value), on_close=on_close,
+                        seconds=time.perf_counter() - t0)
+
+
+def _add_inflate(seconds: dict | None, text: InflatedText, ahead: bool) -> None:
+    """Charge `text`'s read and inflate to the counting sample's seconds;
+    `ahead`: another thread ran it."""
+    if seconds is not None:
+        add_seconds(seconds, "inflate", text.seconds)
+        if ahead:
+            add_seconds(seconds, "inflate_ahead", text.seconds)
+
+
+def _stats(lib, h, unique_counted: int) -> dict:
+    return dict(
+        total_reads=int(lib.bronko_counter_total_reads(h)),
+        total_kmers=int(lib.bronko_counter_total_kmers(h)),
+        unique_kmers=int(lib.bronko_counter_unique(h)),
+        unique_counted_kmers=unique_counted,
+    )
+
+
+def _extract(lib, h, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The n k-mers and counts the last finalize kept, as (u64, int64)."""
+    kmers = np.empty(n, np.uint64)
+    counts = np.empty(n, np.uint32)
+    if n:
+        lib.bronko_counter_extract(h, kmers, counts)
+    return kmers, counts.astype(np.int64)
 
 
 def _count_into(lib, h, path: str, text: InflatedText | None) -> None:
@@ -174,35 +217,46 @@ def _count_into(lib, h, path: str, text: InflatedText | None) -> None:
         raise ValueError(f"malformed FASTQ: {path}")
 
 
+def _create(lib, k: int, threads: int):
+    h = lib.bronko_counter_create(k, max(1, threads))
+    if not h:
+        raise ValueError(f"k={k} outside the counter's supported range")
+    return h
+
+
 def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
-                       threads: int = 4, text: InflatedText | None = None):
+                       threads: int = 4, text: InflatedText | None = None,
+                       seconds: dict[str, float] | None = None):
     """Count a FASTQ file's k-mers entirely in C++ (multithreaded pipeline).
 
     Returns (kmers u64 sorted, counts int64, stats dict), with KMC -b
     -ci<min> -cs<cap> semantics like ops/count.KmerCounter. `threads` is
     the total thread budget; the C++ side picks the split. `text` (from
-    native_read_inflate) skips the read and inflate; it is closed here."""
+    native_read_inflate on another thread) stands for the read and
+    inflate, else they run here first; it is closed here. The spans'
+    seconds add into `seconds` (the module's docstring)."""
     lib = get_lib()
     assert lib is not None
-    h = lib.bronko_counter_create(k, max(1, threads))
-    if not h:
-        raise ValueError(f"k={k} outside the counter's supported range")
+    ahead = text is not None
+    if text is None:
+        text = native_read_inflate(path)
+    _add_inflate(seconds, text, ahead)
+    h = None
     try:
-        _count_into(lib, h, path, text)
-        n = int(lib.bronko_counter_finalize(h, min_count, count_cap))
-        kmers = np.empty(n, np.uint64)
-        counts = np.empty(n, np.uint32)
-        if n:
-            lib.bronko_counter_extract(h, kmers, counts)
-        stats = dict(
-            total_reads=int(lib.bronko_counter_total_reads(h)),
-            total_kmers=int(lib.bronko_counter_total_kmers(h)),
-            unique_kmers=int(lib.bronko_counter_unique(h)),
-            unique_counted_kmers=n,
-        )
-        return kmers, counts.astype(np.int64), stats
+        with span("count.parse", seconds, "parse"):
+            h = _create(lib, k, threads)
+            _count_into(lib, h, path, text)
+        with span("count.finalize", seconds, "finalize"):
+            n = int(lib.bronko_counter_finalize(h, min_count, count_cap))
+            kmers, counts = _extract(lib, h, n)
+            stats = _stats(lib, h, n)
+            lib.bronko_counter_destroy(h)
+            h = None
+        return kmers, counts, stats
     finally:
-        lib.bronko_counter_destroy(h)
+        text.close()
+        if h:
+            lib.bronko_counter_destroy(h)
 
 
 NATIVE_COUNT_PARTS = 4  # key-range partitions of the streamed finalize
@@ -210,7 +264,8 @@ NATIVE_COUNT_PARTS = 4  # key-range partitions of the streamed finalize
 
 
 def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
-                              count_cap: int, threads: int = 4):
+                              count_cap: int, threads: int = 4,
+                              seconds: dict[str, float] | None = None):
     """Count each file, then yield the sorted unique (kmers u64, counts
     int64, stats or None) of each of its NATIVE_COUNT_PARTS key-range
     partitions as it finalizes: the caller sends partition p to the device
@@ -220,47 +275,49 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
     partition. Mate i+1 is read and inflated on a helper thread while mate
     i counts, so at most two inflated buffers are live; a prefetch still
     in flight when a count fails or the consumer abandons the generator
-    is closed (JAX io/native.py:215-284)."""
+    is closed (JAX io/native.py:215-284). The spans' seconds add into
+    `seconds` (the module's docstring); each closes before its yield, so
+    the consumer's work between partitions lies in none of them."""
     from concurrent.futures import ThreadPoolExecutor
 
     lib = get_lib()
     assert lib is not None
     with ThreadPoolExecutor(max_workers=1) as pool:
-        # path 0 inflates inside its own count; path i+1 is submitted just
+        # path 0 is read and inflated here; path i+1 is submitted just
         # before path i counts
         next_tf = pool.submit(native_read_inflate, paths[1]) if len(paths) > 1 else None
         try:
             for i, path in enumerate(paths):
-                text = None
-                if i > 0:
-                    text = next_tf.result()
+                if i == 0:
+                    text = native_read_inflate(path)
+                else:
+                    with span("count.text_wait", seconds, "text_wait"):
+                        text = next_tf.result()
                     next_tf = (pool.submit(native_read_inflate, paths[i + 1])
                                if i + 1 < len(paths) else None)
-                h = lib.bronko_counter_create(k, max(1, threads))
-                if not h:
-                    raise ValueError(f"k={k} outside the counter's supported range")
+                _add_inflate(seconds, text, i > 0)
+                h = None
                 try:
-                    _count_into(lib, h, path, text)
+                    with span("count.parse", seconds, "parse"):
+                        h = _create(lib, k, threads)
+                        _count_into(lib, h, path, text)
                     unique_counted = 0
                     for part in range(NATIVE_COUNT_PARTS):
-                        n = int(lib.bronko_counter_finalize_part(
-                            h, part, NATIVE_COUNT_PARTS, min_count, count_cap))
-                        kmers = np.empty(n, np.uint64)
-                        counts = np.empty(n, np.uint32)
-                        if n:
-                            lib.bronko_counter_extract(h, kmers, counts)
-                        unique_counted += n
-                        stats = None
-                        if part == NATIVE_COUNT_PARTS - 1:
-                            stats = dict(
-                                total_reads=int(lib.bronko_counter_total_reads(h)),
-                                total_kmers=int(lib.bronko_counter_total_kmers(h)),
-                                unique_kmers=int(lib.bronko_counter_unique(h)),
-                                unique_counted_kmers=unique_counted,
-                            )
-                        yield kmers, counts.astype(np.int64), stats
+                        with span("count.finalize", seconds, "finalize"):
+                            n = int(lib.bronko_counter_finalize_part(
+                                h, part, NATIVE_COUNT_PARTS, min_count, count_cap))
+                            kmers, counts = _extract(lib, h, n)
+                            unique_counted += n
+                            stats = (_stats(lib, h, unique_counted)
+                                     if part == NATIVE_COUNT_PARTS - 1 else None)
+                        yield kmers, counts, stats
+                    with span("count.finalize", seconds, "finalize"):
+                        lib.bronko_counter_destroy(h)
+                        h = None
                 finally:
-                    lib.bronko_counter_destroy(h)
+                    text.close()
+                    if h:
+                        lib.bronko_counter_destroy(h)
         finally:
             if next_tf is not None:
                 try:

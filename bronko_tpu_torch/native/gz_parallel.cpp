@@ -44,29 +44,12 @@
 #include <zlib.h>
 
 #include <atomic>
-#include <chrono>
-#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <thread>
 
 namespace bronko_gzp {
 namespace {
-
-// BRONKO_GZP_DEBUG=1: phase timings to stderr (perf tuning aid)
-bool gzp_debug() {
-  static int v = [] {
-    const char* e = getenv("BRONKO_GZP_DEBUG");
-    return e && *e && strcmp(e, "0") != 0 ? 1 : 0;
-  }();
-  return v;
-}
-
-double now_s() {
-  return std::chrono::duration<double>(
-             std::chrono::steady_clock::now().time_since_epoch())
-      .count();
-}
 
 // ---------------------------------------------------------------- bits --
 
@@ -666,7 +649,6 @@ bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out) {
   if (nchunks < 2) return false;
 
   // anchors (parallel scan; chunk 0's anchor is the first block itself)
-  double t0 = now_s();
   std::vector<size_t> anchors(nchunks, SIZE_MAX);
   anchors[0] = hdr * 8;
   std::atomic<bool> abort{false};
@@ -675,7 +657,6 @@ bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out) {
     anchors[i + 1] = find_anchor(in, n, start, abort);
     if (anchors[i + 1] == SIZE_MAX) abort.store(true);
   });
-  double t_anchor = now_s();
   if (abort.load()) return false;
   for (int i = 1; i < nchunks; ++i)  // distinct + increasing, else merge
     if (anchors[i] <= anchors[i - 1]) return false;
@@ -705,7 +686,6 @@ bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out) {
     res[i].reserve_syms = hint;
     decode_chunk(in, n, anchors[i], stop, i == 0, out_cap, res[i], abort);
   });
-  double t_decode = now_s();
   if (abort.load()) return false;
   for (int i = 0; i < nchunks; ++i)
     if (!res[i].ok || (i + 1 < nchunks && res[i].saw_final)) return false;
@@ -780,12 +760,6 @@ bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out) {
     crc = crc32_combine(crc, crcs[i], (long)(offs[i + 1] - offs[i]));
   if ((uint32_t)crc != want_crc) return false;
 
-  if (gzp_debug())
-    fprintf(stderr,
-            "# gzp: chunks=%d anchors=%.3fs decode=%.3fs "
-            "assemble+crc=%.3fs out=%zuMB\n",
-            nchunks, t_anchor - t0, t_decode - t_anchor, now_s() - t_decode,
-            total >> 20);
   g_runs.fetch_add(1);
   return true;
 }

@@ -51,7 +51,6 @@ Every function takes tensors on one device; the kernels dispatch on it
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
 
 import torch
 
@@ -247,30 +246,34 @@ def pick_best_device(tallies: torch.Tensor, glen2: torch.Tensor) -> torch.Tensor
     return scores.argmax().reshape(1)
 
 
-def map_fused(batches, dev, cfg: MapConfig, glen2: torch.Tensor, file_bases: torch.Tensor,
-              after_pass1: Callable[[], None] | None = None):
+def map_fused(batches, dev, cfg: MapConfig, glen2: torch.Tensor, file_bases: torch.Tensor):
     """Both passes and the genome pick in one enqueue, JAX's map_fused_jit
     (map.py:829-867) on the single-word histogram: K1 and kernel (b) a
-    batch, the device pick, K2 and kernel (c) a batch. The walk is exact,
-    so JAX's static lane budget and its overflow flag have no counterpart.
-    `after_pass1` is called once pass 1 is enqueued (the engine's stage
-    mark). Returns (tallies (G, 3) int32, lanes (nb, G) int64, best (1,)
-    int64, saved, pileup), all on the device, with no host sync."""
+    batch (tally_save), then pass2_fused. The walk is exact, so JAX's
+    static lane budget and its overflow flag have no counterpart. Returns
+    (tallies (G, 3) int32, lanes (nb, G) int64, best (1,) int64, saved,
+    pileup), all on the device, with no host sync."""
     if dev.hist is None:
         raise ValueError("map_fused needs the single-word histogram")
     tallies, lanes, saved = tally_save(batches, dev, cfg)
-    if after_pass1 is not None:
-        after_pass1()
+    best, pileup = pass2_fused(batches, saved, tallies, dev, cfg, glen2, file_bases)
+    return tallies, lanes, best, saved, pileup
+
+
+def pass2_fused(batches, saved, tallies: torch.Tensor, dev, cfg: MapConfig,
+                glen2: torch.Tensor, file_bases: torch.Tensor):
+    """map_fused after pass 1: the device pick from the tallies, then K2
+    and kernel (c)'s saved-probe entry a batch, which read the pick on the
+    device (and file_bases at it for int64 postings). Returns (best (1,)
+    int64, pileup (4, T+1, 4) int32), with no host sync."""
     best = pick_best_device(tallies, glen2)
-    # K2 and kernel (c)'s saved-probe entry a batch read the pick on the
-    # device, and file_bases at it for int64 postings
     postings = dev.pass2_postings()
     base = file_bases if postings.dtype == torch.int64 else None
     pileup = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
     for (kmers, counts), (start, h) in zip(batches, saved):
         walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, postings, k=cfg.k,
                      h=h, best=best, file_base=base)
-    return tallies, lanes, best, saved, pileup
+    return best, pileup
 
 
 def probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup, *, cfg: MapConfig):

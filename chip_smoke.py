@@ -526,12 +526,16 @@ def read_outputs(out: str) -> dict[str, bytes]:
     return outputs
 
 
+def stage_total(res) -> float:
+    """A sample's stage seconds summed (the spans' parts of `count` left out)."""
+    return sum(res.seconds[s] for s in engine.STAGES)
+
+
 def stage_line(tag: str, res, smi: str) -> str:
-    total = sum(res.seconds.values())
+    total = stage_total(res)
     stages = ", ".join(f"{s} {v:.4f}" for s, v in res.seconds.items())
-    card = "".join(f"; the card's own {s} {v:.6f}" for s, v in res.device_seconds.items())
     return (f"[{tag}] seconds: {stages}; total {total:.4f} -> "
-            f"{res.reads / total:.0f} reads/s ({res.reads} reads{card}; {smi})")
+            f"{res.reads / total:.0f} reads/s ({res.reads} reads; {smi})")
 
 
 def phase_count(db: str, fastq: str, work: str, host, smi: str) -> dict:
@@ -987,7 +991,7 @@ def phase_cohort(db: str, fastqs: list[str], work: str, smi: str) -> dict:
     for fq in fastqs:
         out = os.path.join(work, f"single_{stem(fq)}")
         res = run_call(db, fq, out, None, "host")
-        singles[fq] = (read_outputs(out), sum(res.seconds.values()))
+        singles[fq] = (read_outputs(out), stage_total(res))
     cohort_in = os.path.join(work, "cohort_in")
     os.makedirs(cohort_in)
     jobs, source = [], {}
@@ -1485,7 +1489,7 @@ def phase_warm(db: str, fastq: str, work: str, n: int, smi: str) -> None:
         for counter, results in runs.items():
             stages = [f"{s} {quartiles([r.seconds[s] for r in results])[0]}"
                       for s in engine.STAGES]
-            total, med = quartiles([sum(r.seconds.values()) for r in results])
+            total, med = quartiles([stage_total(r) for r in results])
             print(f"[warm {counter}] median (q1, q3) of {n}: {', '.join(stages)}; "
                   f"total {total} -> {results[0].reads / med:.0f} reads/s ({smi})", flush=True)
 
@@ -1619,7 +1623,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
                                            None, "host"))
     med = {}
     for name, results in runs.items():
-        q1, med[name], q3 = statistics.quantiles([sum(r.seconds.values()) for r in results], n=4)
+        q1, med[name], q3 = statistics.quantiles([stage_total(r) for r in results], n=4)
         stages = ", ".join(f"{s} {statistics.median(r.seconds[s] for r in results):.6f}"
                            for s in engine.STAGES)
         print(f"[stream warm {name}] median (q1, q3) of {n}, in turns: total {med[name]:.6f} "
@@ -1886,11 +1890,10 @@ def phase_fused(db: str, fastqs: list[str], work: str, warm: int, smi: str):
     if (mapped.best != fused[0].best or not np.array_equal(mapped.tallies, fused[0].tallies)
             or not np.array_equal(mapped.pileup, fused[0].pileup)):
         fail("fused", "the sample enqueued under the sync check differs from the cohort's")
-    card = ", ".join(f"{s} {v:.6f}" for s, v in mapped.device_seconds.items())
     wall = ", ".join(f"{s} {mapped.seconds[s]:.6f}" for s in ("pass1", "pass2", "d2h"))
     print(f"[fused] s0 enqueued under set_sync_debug_mode('error'): no sync, enqueue "
-          f"{enqueue_s:.6f}s; resolved equal to the cohort's s0; wall stages {wall}; the "
-          f"card's own between events {card} s ({smi})", flush=True)
+          f"{enqueue_s:.6f}s; resolved equal to the cohort's s0; wall stages {wall} ({smi})",
+          flush=True)
 
     rows = _fused_kernel_rows(dev_f, counted.batches[0], fused[0].best, smi)
 
@@ -1908,7 +1911,7 @@ def phase_fused(db: str, fastqs: list[str], work: str, warm: int, smi: str):
     for name, results in runs.items():
         if {r.path for r in results} != {("hist", "fused" if name == "fused" else "subindex")}:
             fail("fused", f"warm {name} runs took {sorted({r.path for r in results})}")
-        q1, med[name], q3 = statistics.quantiles([sum(r.seconds.values()) for r in results], n=4)
+        q1, med[name], q3 = statistics.quantiles([stage_total(r) for r in results], n=4)
         stages = ", ".join(f"{s} {statistics.median(r.seconds[s] for r in results):.6f}"
                            for s in engine.STAGES)
         print(f"[fused warm {name}] s0 alone, median (q1, q3) of {n}, in turns: total "

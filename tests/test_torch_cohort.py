@@ -257,12 +257,12 @@ def test_stage_seconds_come_from_their_threads(synth, tmp_path, monkeypatch):
                                          batch_size=4096), index, build_device_index(index, CPU))
     assert [r.summary.filename for r in results] == fqs
     for r in results:
-        assert tuple(r.seconds) == engine.STAGES
+        assert tuple(r.seconds) == engine.STAGES + engine.SPAN_KEYS
         assert r.seconds["count"] > 0 and r.seconds["call"] > 0 and r.seconds["h2d"] > 0
     os.makedirs(tmp_path / "one")
     one = engine.process_sample([fq], index, build_device_index(index, CPU),
                                 CallConfig(genomes=[ref], reads=[fq], batch_size=4096,
                                            output=str(tmp_path / "one")))
-    assert tuple(one.seconds) == engine.STAGES and one.best == results[0].best
+    assert tuple(one.seconds) == engine.STAGES + engine.SPAN_KEYS and one.best == results[0].best
     np.testing.assert_array_equal(one.pileup, results[0].pileup)
     assert one.records == results[0].records

@@ -701,8 +701,8 @@ def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeyp
             assert n >= 3 and all(launched[k] == n for k in
                                   ("probe_tally", "fold_table", "walk_scatter"))
             for r in results:
-                assert set(r.device_seconds) == {"pass1", "pass2", "d2h"}
-                assert min(r.device_seconds.values()) >= 0
+                assert tuple(r.seconds) == engine.STAGES + engine.SPAN_KEYS
+                assert min(r.seconds.values()) >= 0 and r.seconds["pass1"] > 0
         runs[name] = (results, {f: open(tmp_path / name / f, "rb").read()
                                 for f in sorted(os.listdir(tmp_path / name))})
     for name in ("gpu", "gpu_two_pass"):

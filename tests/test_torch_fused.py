@@ -260,14 +260,14 @@ def test_fused_cohort_matches_jax_and_two_pass(cohort, tmp_path, monkeypatch, ca
         assert a.best == b.best == 0
         np.testing.assert_array_equal(a.tallies, b.tallies)
         np.testing.assert_array_equal(a.pileup, b.pileup)
-        assert set(a.seconds) == set(te.STAGES)
+        assert set(a.seconds) == set(te.STAGES + te.SPAN_KEYS)
 
 
 def test_path_follows_the_index_alone(cohort, tmp_path, monkeypatch):
     """Which path a sample takes depends on the index, not on what ran
     before it: on one DeviceIndex reused across runs, each run's lone
     sample is fused. On the CPU its stage seconds are wall seconds
-    (every one present, none negative) and no device seconds are kept."""
+    (every one present, none negative), the spans' parts beside them."""
     _, fqs, _, jindex = cohort
     index = from_jax_index(jindex)
     dev = tl.build_device_index(index, CPU)
@@ -280,8 +280,8 @@ def test_path_follows_the_index_alone(cohort, tmp_path, monkeypatch):
         results.append(res)
     assert [r.path for r in results] == [("hist", "fused")] * 2
     for r in results:
-        assert tuple(r.seconds) == te.STAGES and min(r.seconds.values()) >= 0
-        assert r.seconds["pass1"] > 0 and r.device_seconds == {}
+        assert tuple(r.seconds) == te.STAGES + te.SPAN_KEYS and min(r.seconds.values()) >= 0
+        assert r.seconds["pass1"] > 0
     np.testing.assert_array_equal(results[0].pileup, results[1].pileup)
 
 
