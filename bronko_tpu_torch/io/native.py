@@ -268,8 +268,8 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                               seconds: dict[str, float] | None = None):
     """Count each file, then yield the sorted unique (kmers u64, counts
     int64, stats or None) of each of its NATIVE_COUNT_PARTS key-range
-    partitions as it finalizes: the caller sends partition p to the device
-    while the host sorts partition p+1. Partitions in order are
+    partitions: a path's first finalize merges all of them across threads,
+    and the caller sends each to the device as it comes. Partitions in order are
     native_count_fastq's output. Each path has its own counter (paired
     mates are separate k-mer streams); stats come with a path's last
     partition. Mate i+1 is read and inflated on a helper thread while mate

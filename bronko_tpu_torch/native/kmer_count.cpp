@@ -19,9 +19,12 @@
 //    count the blocks with the same slice parser the whole-buffer path
 //    uses, so inflate is the reader's only serial work.
 //
-// finalize() merges tables by sorted key-range partition. This is the
-// IO-optimal front end when host<->device bandwidth is scarce: only the
-// unique (k-mer, count) pairs ship to the device mapper.
+// Both finalizes share one merge (merge_parts): each table is scanned once,
+// one thread a table, into 8 sorted key-range partitions that merge one
+// thread a partition. finalize() concatenates them; finalize_part() hands
+// them out a slice at a time. This is the IO-optimal front end when
+// host<->device bandwidth is scarce: only the unique (k-mer, count) pairs
+// ship to the device mapper.
 
 #include <dlfcn.h>
 #include <sys/stat.h>
@@ -157,6 +160,14 @@ struct Batch {
   std::vector<char> seq;  // record-aligned raw FASTQ text
 };
 
+// One sorted key-range partition of the merged output: the ci-surviving
+// (key, min(count, cs)) pairs and the number of distinct keys counted
+struct MergedPart {
+  std::vector<uint64_t> keys;
+  std::vector<uint32_t> vals;
+  int64_t unique = 0;
+};
+
 struct Counter {
   int k = 21;
   int n_threads = 1;
@@ -169,7 +180,9 @@ struct Counter {
   std::vector<uint64_t> out_keys;
   std::vector<uint32_t> out_vals;
   int64_t n_unique = 0;
-  bool finalized = false;
+  // merge_parts' partitions, until a finalize hands them out
+  std::vector<MergedPart> parts;
+  bool merged = false;
 
   // streaming-pipeline state
   std::mutex mu;
@@ -721,6 +734,9 @@ int count_streaming(Counter* c, const char* path) {
   return rc;
 }
 
+// (key, val) items of one partition, gathered per source table
+using PartItems = std::vector<std::pair<uint64_t, uint32_t>>;
+
 // Merge one key-range partition of the per-thread tables into sorted
 // (key, count) survivors. Duplicates across tables merge through a small
 // per-partition hash table (L2/L3-resident), and ONLY the ci-surviving
@@ -729,15 +745,6 @@ int count_streaming(Counter* c, const char* path) {
 // die at the ci floor; measured 0.16 s -> 0.06 s for the whole finalize).
 // uint32 count accumulation saturates (insert_sat), matching the old
 // uint64-sum-then-clamp semantics for any uint32 ci/cs.
-struct MergedPart {
-  std::vector<uint64_t> keys;
-  std::vector<uint32_t> vals;
-  int64_t unique = 0;
-};
-
-// (key, val) items of one partition, gathered per source table
-using PartItems = std::vector<std::pair<uint64_t, uint32_t>>;
-
 void merge_items(const std::vector<const PartItems*>& srcs, uint32_t ci,
                  uint32_t cs, MergedPart& out) {
   size_t total = 0;
@@ -763,8 +770,8 @@ void merge_items(const std::vector<const PartItems*>& srcs, uint32_t ci,
 }
 
 // Scan ONE source table once, bucketing its entries into per-partition
-// item lists (the per-partition-scan alternative reads every table P
-// times — 8x the memory traffic).
+// item lists (scanning every table once per partition instead would read
+// each table P times — 8x the memory traffic).
 void scatter_table(const Table& t, int shift, int n_parts,
                    std::vector<PartItems>& parts_out) {
   parts_out.assign(n_parts, PartItems());
@@ -776,19 +783,57 @@ void scatter_table(const Table& t, int shift, int n_parts,
   }
 }
 
-void merge_partition(Counter* c, int part, int shift, uint32_t ci,
-                     uint32_t cs, MergedPart& out) {
-  // single-partition form (the streamed finalize_part path): one scan of
-  // every table, filtered to this partition
-  PartItems items;
-  for (auto& t : c->tables)
-    for (size_t i = 0; i < t.keys.size(); ++i) {
-      uint64_t key = t.keys[i];
-      if (key != Table::kEmpty && (int)(key >> shift) == part)
-        items.emplace_back(key, t.vals[i]);
-    }
-  std::vector<const PartItems*> srcs{&items};
-  merge_items(srcs, ci, cs, out);
+constexpr int kParts = 8;  // partitions of merge_parts; a power of two
+
+// Merge the per-thread tables into c->parts, kParts sorted key-range
+// partitions: partition p owns the keys whose top 3 USED bits equal p
+// (keys < 2^(2k), so a fixed 64-bit shift would put everything in
+// partition 0), so the merges are independent and the partitions in order
+// ARE the globally sorted output (the device path and oracle tests depend
+// on sorted extraction order). Pass 1 scans each source table once, one
+// thread a table; pass 2 hash-merges each partition and sorts its
+// survivors, one thread a partition.
+void merge_parts(Counter* c, uint32_t ci, uint32_t cs) {
+  const int shift = 2 * c->k - 3;
+  const size_t T = c->tables.size();
+  std::vector<std::vector<PartItems>> bufs(T);
+  {
+    std::vector<std::thread> scanners;
+    for (size_t t = 0; t < T; ++t)
+      scanners.emplace_back(scatter_table, std::cref(c->tables[t]), shift,
+                            kParts, std::ref(bufs[t]));
+    for (auto& w : scanners) w.join();
+  }
+  c->parts.assign(kParts, MergedPart());
+  std::vector<std::thread> workers;
+  for (int p = 0; p < kParts; ++p)
+    workers.emplace_back([&, p]() {
+      std::vector<const PartItems*> srcs;
+      for (size_t t = 0; t < T; ++t) srcs.push_back(&bufs[t][p]);
+      merge_items(srcs, ci, cs, c->parts[p]);
+    });
+  for (auto& w : workers) w.join();
+  c->merged = true;
+}
+
+// Concatenate partitions [lo, hi) of c->parts into out_keys/out_vals,
+// freeing each; returns their distinct keys.
+int64_t take_parts(Counter* c, int lo, int hi) {
+  size_t total = 0;
+  for (int p = lo; p < hi; ++p) total += c->parts[p].keys.size();
+  c->out_keys.clear();
+  c->out_vals.clear();
+  c->out_keys.reserve(total);
+  c->out_vals.reserve(total);
+  int64_t unique = 0;
+  for (int p = lo; p < hi; ++p) {
+    MergedPart& m = c->parts[p];
+    unique += m.unique;
+    c->out_keys.insert(c->out_keys.end(), m.keys.begin(), m.keys.end());
+    c->out_vals.insert(c->out_vals.end(), m.vals.begin(), m.vals.end());
+    m = MergedPart();
+  }
+  return unique;
 }
 
 }  // namespace
@@ -858,73 +903,39 @@ int bronko_counter_count_text(void* h, const void* text, int64_t size) {
                     static_cast<const char*>(text), (size_t)size);
 }
 
-// Merge per-thread tables; apply ci floor and cs cap. Returns kept count.
-// Parallelized by key-range partition: partition p owns keys whose top
-// bits equal p, so per-partition merge is independent and the
-// concatenation in partition order IS the globally sorted output (the
-// device path and oracle tests depend on sorted extraction order).
+// Merge per-thread tables; apply ci floor and cs cap. Returns kept count,
+// all kParts partitions of merge_parts in order.
 int64_t bronko_counter_finalize(void* h, uint32_t ci, uint32_t cs) {
   auto* c = static_cast<Counter*>(h);
-  if (!c->finalized) {
-    const int P = 8;  // power of two; partition id = top 3 USED bits of
-    // the 2k-bit k-mer (keys < 2^(2k), so a fixed 64-bit shift would put
-    // everything in partition 0)
-    const int shift = 2 * c->k - 3;
-    // pass 1: each source table scanned ONCE (parallel over tables),
-    // bucketing entries into per-(table, partition) item lists
-    const size_t T = c->tables.size();
-    std::vector<std::vector<PartItems>> bufs(T);
-    {
-      std::vector<std::thread> scanners;
-      for (size_t t = 0; t < T; ++t)
-        scanners.emplace_back(scatter_table, std::cref(c->tables[t]), shift,
-                              P, std::ref(bufs[t]));
-      for (auto& w : scanners) w.join();
-    }
-    // pass 2: parallel per-partition hash merge + survivor sort
-    std::vector<MergedPart> parts(P);
-    std::vector<std::thread> workers;
-    for (int p = 0; p < P; ++p)
-      workers.emplace_back([&, p]() {
-        std::vector<const PartItems*> srcs;
-        for (size_t t = 0; t < T; ++t) srcs.push_back(&bufs[t][p]);
-        merge_items(srcs, ci, cs, parts[p]);
-      });
-    for (auto& w : workers) w.join();
-    c->out_keys.clear();
-    c->out_vals.clear();
-    c->n_unique = 0;
-    size_t total = 0;
-    for (auto& p : parts) total += p.keys.size();
-    c->out_keys.reserve(total);
-    c->out_vals.reserve(total);
-    for (auto& p : parts) {
-      c->n_unique += p.unique;
-      c->out_keys.insert(c->out_keys.end(), p.keys.begin(), p.keys.end());
-      c->out_vals.insert(c->out_vals.end(), p.vals.begin(), p.vals.end());
-    }
-    c->finalized = true;
+  if (!c->merged) {
+    merge_parts(c, ci, cs);
+    c->n_unique = take_parts(c, 0, kParts);
   }
   return (int64_t)c->out_keys.size();
 }
 
-// Streaming variant: finalize ONE of n_parts key-range partitions
+// Streaming variant: returns ONE of n_parts key-range partitions
 // (partition id = top log2(n_parts) used bits; n_parts a power of two in
-// [1, 8]). The caller extracts partition p and dispatches device work on it
-// while partition p+1 sorts on the host — count->map overlap for
-// single-sample latency. Partitions concatenated in order 0..n_parts-1
-// equal the full finalize output.
+// [1, 8]). Those bits nest inside merge_parts' top 3, so partition `part`
+// is merge_parts' partitions [part*8/n_parts, (part+1)*8/n_parts). The
+// first call of a handle runs the whole threaded merge, so partition 0
+// waits for all 8 merges (tens of milliseconds a mate of 150,000 reads)
+// and the later calls only copy. The caller dispatches device work on
+// partition p before it asks for p+1; that work is a fraction of a
+// millisecond a sample, so merging one partition a call to overlap it
+// would gain nothing and cost a serial scan of every table per partition.
+// Partitions concatenated in order 0..n_parts-1 equal the full finalize
+// output, and n_unique after the last one equals its count. Returns -1
+// for a part or n_parts outside that range.
 int64_t bronko_counter_finalize_part(void* h, int part, int n_parts,
                                      uint32_t ci, uint32_t cs) {
   auto* c = static_cast<Counter*>(h);
-  int bits = 0;
-  while ((1 << bits) < n_parts) ++bits;
-  const int shift = 2 * c->k - bits;
-  MergedPart out;
-  merge_partition(c, part, shift, ci, cs, out);
-  c->n_unique += out.unique;  // accumulates across partitions
-  c->out_keys = std::move(out.keys);
-  c->out_vals = std::move(out.vals);
+  if (n_parts < 1 || n_parts > kParts || (n_parts & (n_parts - 1)) ||
+      part < 0 || part >= n_parts)
+    return -1;
+  if (!c->merged) merge_parts(c, ci, cs);
+  const int per = kParts / n_parts;
+  c->n_unique += take_parts(c, part * per, (part + 1) * per);
   return (int64_t)c->out_keys.size();
 }
 

@@ -161,6 +161,58 @@ def test_native_count_fastq_stream_matches_jax(data, mates):
         assert mine[-1][2] == stats
 
 
+@pytest.mark.parametrize("parts,threads,floor", [
+    *((p, t, "default") for p in (1, 2, 4, 8) for t in (1, 3, 4)),
+    (4, 4, "every_kmer_capped"),
+], ids=str)
+def test_streamed_partitions_are_key_ranges_of_the_classic_count(data, monkeypatch, parts,
+                                                                 threads, floor):
+    """At any power-of-two partition count and thread count, a path's
+    streamed partitions are strictly increasing, each within its own range
+    of the top log2(parts) bits of the 2k-bit key, and concatenate to
+    native_count_fastq's k-mers and counts; the last carries its stats.
+    'every_kmer_capped' (ci 1, cs 1) keeps every k-mer, each at count 1."""
+    k = 21
+    ci, cs = (MIN_KMERS, KMER_COUNT_CAP) if floor == "default" else (1, 1)
+    monkeypatch.setattr(native, "NATIVE_COUNT_PARTS", parts)
+    paths = [data.r1, data.r2]
+    got = list(native.native_count_fastq_stream(paths, k, ci, cs, threads=threads))
+    assert len(got) == parts * len(paths)
+    shift = np.uint64(2 * k - (parts.bit_length() - 1))
+    for m, path in enumerate(paths):
+        mine = got[m * parts:(m + 1) * parts]
+        for p, (kmers, counts, _) in enumerate(mine):
+            assert np.all(kmers[1:] > kmers[:-1])
+            assert np.all(kmers >> shift == p)
+            assert counts.shape == kmers.shape
+        kmers, counts, stats = native.native_count_fastq(path, k, ci, cs, threads=threads)
+        assert kmers.shape[0] > 0
+        np.testing.assert_array_equal(np.concatenate([km for km, _, _ in mine]), kmers)
+        np.testing.assert_array_equal(np.concatenate([c for _, c, _ in mine]), counts)
+        assert [s is None for *_, s in mine] == [True] * (parts - 1) + [False]
+        assert mine[-1][2] == stats
+        if floor != "default":
+            assert np.all(counts == 1) and stats["unique_kmers"] == kmers.shape[0]
+
+
+def test_finalize_part_refuses_a_partition_outside_its_count(data):
+    """finalize_part takes n_parts a power of two in [1, 8] and part in
+    [0, n_parts); anything else returns -1 and takes nothing out."""
+    lib = native.get_lib()
+    h = lib.bronko_counter_create(21, 2)
+    try:
+        assert lib.bronko_counter_count_fastq(h, data.fq.encode()) == 0
+        for part, n_parts in ((0, 0), (0, 3), (0, 16), (-1, 4), (4, 4)):
+            assert lib.bronko_counter_finalize_part(h, part, n_parts, MIN_KMERS,
+                                                    KMER_COUNT_CAP) == -1
+        kmers, _, _ = native.native_count_fastq(data.fq, 21, MIN_KMERS, KMER_COUNT_CAP,
+                                                threads=2)
+        assert lib.bronko_counter_finalize_part(h, 0, 1, MIN_KMERS,
+                                                KMER_COUNT_CAP) == kmers.shape[0]
+    finally:
+        lib.bronko_counter_destroy(h)
+
+
 def test_abandoned_stream_closes_its_prefetch(data, monkeypatch):
     """A consumer that stops after the first partition of a pair closes
     the second mate's inflate-ahead buffer. The first mate's own buffer,
