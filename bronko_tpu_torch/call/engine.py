@@ -20,6 +20,9 @@ goes through:
   6. call: the noise scan, the f64 filter cascade and the writers
      (call/noise.py, call/variants.py, call/outputs.py).
 
+Each sample's SampleResult.counts holds what it mapped: its kept k-mer
+rows, its device batches and the index's histogram words a row.
+
 With the saved probe on one device, the main thread only enqueues steps
 3-5, as JAX's engine does (engine.py:753-980). On the single histogram
 word a PendingFused holds pass 1, the genome pick on the device and
@@ -65,12 +68,15 @@ into the sample's SampleResult.seconds, and under torch.profiler it is a
 `bronko.<name>` range on the thread that ran it. Beside the six STAGES,
 the seconds hold SPAN_KEYS, the parts of `count` (io/native.py: inflate,
 parse, finalize, text_wait; `dispatch`, the streamed path's uploads and
-pass-1 enqueues) and the main thread's wait for the sample's count
+pass-1 enqueues), the main thread's wait for the sample's count
 (`count_wait`), so that count ~ inflate - inflate_ahead + text_wait +
-parse + finalize + dispatch. Ranges with no seconds name what a thread
-waits on or works in: `map` (the main thread's device part),
-`caller_wait`, `resolve`, and `sample.<input position>` around each
-thread's share of a sample.
+parse + finalize + dispatch, and the parts of `call` (`noise`, the noise
+scan; `variants`, the filter cascade; `write`, the writers), so that
+call ~ noise + variants + write. Ranges with no seconds name what a
+thread waits on or works in: `map.rows=<n>.batches=<n>.words=<n>` (the
+main thread's device part, named with the sample's counts; on the
+streamed path, its resolve), `caller_wait`, `resolve`, and
+`sample.<input position>` around each thread's share of a sample.
 
 Batching cannot change a result: tallies are sums, the pileup sums and
 maxima. Neither can the pipeline: each sample's device part runs on the
@@ -132,7 +138,7 @@ STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
 # the spans' seconds beside the stages (the module's docstring); 0 where a
 # sample's path has no such span
 SPAN_KEYS = ("inflate", "inflate_ahead", "parse", "finalize", "text_wait", "dispatch",
-             "count_wait")
+             "count_wait", "noise", "variants", "write")
 
 # cap on the saved pass-1 probe, which stays on the device until pass 2
 # (JAX engine.py:51)
@@ -152,6 +158,8 @@ class SampleResult:
     #                              sample another rank mapped (--shard-samples)
     reads: int                   # reads counted
     seconds: dict[str, float]    # wall seconds by STAGES, then by SPAN_KEYS
+    counts: dict[str, int]       # rows (kept k-mers mapped), batches (device batches),
+    #                              words (histogram words a row; 0 without one)
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex', 'fused'
     #                              or 'streamed')
 
@@ -327,59 +335,69 @@ def _select_and_log(tallies: np.ndarray, index: BronkoIndex, dev: DeviceIndex,
 
 
 def call_sample_variants(index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
-                         best: int, pileup: np.ndarray):
+                         best: int, pileup: np.ndarray,
+                         seconds: dict[str, float] | None = None):
     """Noise scan + filter cascade over every sequence of genome `best`,
-    from its genome-local host pileup."""
-    stats = CallStats()
-    records: list[VCFRecord] = []
-    seq_pileups: dict[str, tuple] = {}
-    file_meta = index.files[best]
-    slices = dev.slices_for_file(best)
-    file_base = min(s.offset for s in slices) if slices else 0
-    for sl in slices:
-        seq_meta = file_meta.sequences[sl.seq_id]
-        block = pileup[:, sl.offset - file_base:sl.offset - file_base + sl.length]
-        fwd_depth = block[PLANE_DEPTH_FWD]
-        rev_depth = block[PLANE_DEPTH_REV]
-        seq_pileups[sl.name] = (fwd_depth, rev_depth)
-        noise = baseline_noise(fwd_depth, rev_depth)
-        records.extend(call_variants_for_seq(
-            sl.name, seq_meta.seq,
-            fwd_depth, rev_depth, block[PLANE_CNT_FWD], block[PLANE_CNT_REV],
-            noise[:, 0],
-            k=cfg.kmer,
-            min_af=cfg.min_af,
-            filter_end_seq=not cfg.no_end_filter,
-            strand_filter=not cfg.no_strand_filter,
-            no_strand_balance_filter=cfg.no_strand_balance_filter,
-            strand_balance_ratio=cfg.strand_balance_ratio,
-            strand_odds_max=cfg.strand_odds_max,
-            n_per_strand=cfg.n_per_strand,
-            min_depth=cfg.min_depth,
-            min_variant_depth=cfg.min_variant_depth,
-            variant_multiplier=cfg.variant_multiplier,
-            stats=stats,
-        ))
-    log.info("Sample breadth of coverage: %s, depth of coverage: %s",
-             stats.breadth, stats.depth)
-    log.info("Called %d major variants, %d minor above maf = %s",
-             stats.num_major, stats.num_minor, cfg.min_af)
+    from its genome-local host pileup. The two spans add into `seconds`
+    (keys noise and variants) and leave little of the call outside them:
+    `noise` holds the slicing and every sequence's scan, `variants` every
+    sequence's cascade and its log lines."""
+    with span("call.noise", seconds, "noise"):
+        stats = CallStats()
+        records: list[VCFRecord] = []
+        seq_pileups: dict[str, tuple] = {}
+        file_meta = index.files[best]
+        slices = dev.slices_for_file(best)
+        file_base = min(s.offset for s in slices) if slices else 0
+        scanned = []
+        for sl in slices:
+            block = pileup[:, sl.offset - file_base:sl.offset - file_base + sl.length]
+            fwd_depth = block[PLANE_DEPTH_FWD]
+            rev_depth = block[PLANE_DEPTH_REV]
+            seq_pileups[sl.name] = (fwd_depth, rev_depth)
+            scanned.append((sl, block, baseline_noise(fwd_depth, rev_depth)))
+    with span("call.variants", seconds, "variants"):
+        for sl, block, noise in scanned:
+            records.extend(call_variants_for_seq(
+                sl.name, file_meta.sequences[sl.seq_id].seq,
+                block[PLANE_DEPTH_FWD], block[PLANE_DEPTH_REV],
+                block[PLANE_CNT_FWD], block[PLANE_CNT_REV],
+                noise[:, 0],
+                k=cfg.kmer,
+                min_af=cfg.min_af,
+                filter_end_seq=not cfg.no_end_filter,
+                strand_filter=not cfg.no_strand_filter,
+                no_strand_balance_filter=cfg.no_strand_balance_filter,
+                strand_balance_ratio=cfg.strand_balance_ratio,
+                strand_odds_max=cfg.strand_odds_max,
+                n_per_strand=cfg.n_per_strand,
+                min_depth=cfg.min_depth,
+                min_variant_depth=cfg.min_variant_depth,
+                variant_multiplier=cfg.variant_multiplier,
+                stats=stats,
+            ))
+        log.info("Sample breadth of coverage: %s, depth of coverage: %s",
+                 stats.breadth, stats.depth)
+        log.info("Called %d major variants, %d minor above maf = %s",
+                 stats.num_major, stats.num_minor, cfg.min_af)
     return records, stats, seq_pileups
 
 
 def _finish_one(display_path: str, index: BronkoIndex, dev: DeviceIndex,
                 cfg: CallConfig, best: int, pileup: np.ndarray,
-                tally_triple: tuple[int, int, int]):
+                tally_triple: tuple[int, int, int], seconds: dict[str, float] | None = None):
     """Host phase of one sample: call variants and write its outputs. In a
     world of several ranks every rank calls; rank 0 alone writes, unless
-    each rank owns its samples (--shard-samples; JAX engine.py:1046-1054)."""
-    records, stats, seq_pileups = call_sample_variants(index, dev, cfg, best, pileup)
-    if is_primary() or cfg.shard_samples:
-        if cfg.output_pileup:
-            write_pileup(cfg.output, display_path, index.files[best], seq_pileups)
-        write_vcf(cfg.output, display_path, records, index.files[best])
-    summary = SampleSummary(display_path, index.files[best].name, stats,
-                            *tally_triple)
+    each rank owns its samples (--shard-samples; JAX engine.py:1046-1054).
+    The spans add into `seconds` (noise, variants, write)."""
+    records, stats, seq_pileups = call_sample_variants(index, dev, cfg, best, pileup, seconds)
+    with span("call.write", seconds, "write"):
+        if is_primary() or cfg.shard_samples:
+            if cfg.output_pileup:
+                write_pileup(cfg.output, display_path, index.files[best], seq_pileups)
+            write_vcf(cfg.output, display_path, records, index.files[best])
+        summary = SampleSummary(display_path, index.files[best].name, stats,
+                                *tally_triple)
     return summary, records
 
 
@@ -415,6 +433,7 @@ class Mapped:
     pileup: np.ndarray
     path: tuple[str, str]
     seconds: dict[str, float]     # 'pass1', 'pass2', 'd2h', and 'h2d' if done here
+    counts: dict[str, int]        # SampleResult.counts
 
 
 class _Stages:
@@ -472,6 +491,7 @@ class _Pending:
     cstats: CountStats
     t_start: float
     seconds: dict             # h2d, when _map_one uploaded
+    counts: dict              # SampleResult.counts
 
     def _select(self, index: BronkoIndex, dev: DeviceIndex, tail: int, note: str = ""):
         """The host's side of pass 1 once its copy is in: the tallies and
@@ -492,7 +512,8 @@ class _Pending:
                                  self.mcfg, dev.g_total_len, int(dev.file_bases[best]))
 
     def _mapped(self, best, triple, tallies, pileup, path) -> Mapped:
-        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host})
+        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host},
+                      self.counts)
 
 
 @dataclass
@@ -553,7 +574,7 @@ class PendingFused(_Pending):
 
 
 def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountStats,
-                   t_start: float, seconds: dict) -> PendingMap | PendingFused:
+                   t_start: float, seconds: dict, counts: dict) -> PendingMap | PendingFused:
     """The single-device path with the saved probe, enqueued with no host
     sync (JAX engine.py:801-881): every stage fused on the single
     histogram word (ops/map.map_fused's tally_save and pass2_fused), pass
@@ -567,7 +588,7 @@ def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountS
     stages.record("pass1")
     if dev.hist is None:
         return PendingMap(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
-                          t_start, seconds)
+                          t_start, seconds, counts)
     with span("pass2", stages.host):
         best, pileup = pass2_fused(batches, saved, tallies, dev, mcfg, dev.glen2_t(),
                                    dev.file_bases_t())
@@ -577,7 +598,7 @@ def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountS
         meta_host, pileup_host = _copy_to_host(meta), _copy_to_host(pileup)
     stages.record("d2h")
     return PendingFused(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
-                        t_start, seconds, pileup, pileup_host)
+                        t_start, seconds, counts, pileup, pileup_host)
 
 
 def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
@@ -590,13 +611,14 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     collectives run on this thread) it returns the Mapped sample: pass 1,
     selection, pass 2 and d2h, the device synced at every stage boundary.
     h2d is done here unless a count worker uploaded the batches. All of
-    it runs in the range `map`."""
-    with span("map"):
+    it runs in the range `map`, named with the sample's counts."""
+    mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
+    # no bucket survives the trim: nothing to map
+    n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
+    mapped_counts = map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev)
+    with span(map_range(mapped_counts)):
         seconds: dict[str, float] = {}
         device = dev.device if mapper is None else mapper.device
-        mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-        # no bucket survives the trim: nothing to map
-        n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
         t_start = time.perf_counter()  # the log's "Tallied" counts from here
         batches = counted.batches
         if batches is None:
@@ -606,7 +628,8 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
                            else mapper.place_batches(kmers, counts, cfg.batch_size))
                 _sync(device)
         if mapper is None and saves_probe(dev, n_kmers, len(mcfg.positions)):
-            return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t_start, seconds)
+            return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t_start, seconds,
+                                  mapped_counts)
 
         with span("pass1", seconds) as sp:
             p1 = (run_pass1(batches, dev, mcfg) if mapper is None
@@ -620,7 +643,7 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
             log.info("Scattered pileup in %.2fs", sp.elapsed())
         with span("d2h", seconds):
             pileup = pileup_t.cpu().numpy()
-        return Mapped(best, triple, p1.tallies, pileup, p1.path, seconds)
+        return Mapped(best, triple, p1.tallies, pileup, p1.path, seconds, mapped_counts)
 
 
 def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
@@ -637,12 +660,12 @@ def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfi
                 mapped = mapped.resolve(index, dev)
         with span("call", own):
             summary, records = _finish_one(display, index, dev, cfg, mapped.best,
-                                           mapped.pileup, mapped.triple)
+                                           mapped.pileup, mapped.triple, own)
     seconds = {**seconds, **mapped.seconds, **own}
     return SampleResult(summary, records, mapped.tallies, mapped.best, mapped.pileup, reads,
                         {**{s: seconds[s] for s in STAGES},
                          **{s: seconds.get(s, 0.0) for s in SPAN_KEYS}},
-                        mapped.path)
+                        mapped.counts, mapped.path)
 
 
 def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
@@ -657,6 +680,28 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
         mapped = _map_one(counted, index, dev, cfg)
         return _call_one(job[0], index, dev, cfg, mapped, counted.cstats.total_reads,
                          counted.seconds)
+
+
+def hist_words(dev: DeviceIndex) -> int:
+    """Histogram words a row of the index: 1 for the single word, W for
+    the multi-word histogram, 0 without one (the flat tally)."""
+    if dev.hist is not None:
+        return 1
+    return 0 if dev.hist_words is None else int(dev.hist_words.shape[1])
+
+
+def map_counts(rows: int, batches: int, dev: DeviceIndex) -> dict[str, int]:
+    """A sample's SampleResult.counts, which are also logged."""
+    words = hist_words(dev)
+    log.info("Mapping %d kept k-mer rows in %d device batch(es) against %d genomes, "
+             "%d histogram word(s) a row", rows, batches, dev.num_genomes, words)
+    return {"rows": rows, "batches": batches, "words": words}
+
+
+def map_range(counts: dict[str, int]) -> str:
+    """The name of a sample's `map` range, which carries its counts into a
+    trace (a range keeps its name but not its arguments)."""
+    return "map.rows={rows}.batches={batches}.words={words}".format(**counts)
 
 
 def probe_bytes_per_query(dev: DeviceIndex) -> int | None:
@@ -897,6 +942,7 @@ class PendingStream:
     # the stages before resolve(): the count and its parts, with every
     # partition's upload and pass-1 dispatch inside it (`dispatch`), so h2d is 0
     seconds: dict[str, float]
+    counts: dict[str, int]     # SampleResult.counts, every partition's batches
 
     def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
         """Tallies and every partition's walk lengths in one host copy, the
@@ -924,7 +970,8 @@ class PendingStream:
             log.info("Scattered pileup in %.2fs", sp.elapsed())
         with span("d2h", seconds):
             pileup = pileup_t.cpu().numpy()
-        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"), seconds)
+        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"), seconds,
+                      self.counts)
 
     def _pass2(self, dev: DeviceIndex, walks: list, best: int) -> torch.Tensor:
         """Genome `best`'s pileup on the device from every partition."""
@@ -1001,9 +1048,10 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         cstats.total_kmers, cstats.total_kmers * index.k, seconds["count"])
     log.info("Streamed %d partition(s), %d with a saved probe", len(parts),
              sum(saved is not None for *_, saved in parts))
+    counts = map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev)
     log_memory_usage("Finished counting kmers", device)
     return PendingStream(acc, parts, mcfg, n_kmers, cstats, count_span.t0, count_span.t1,
-                         seconds)
+                         seconds, counts)
 
 
 class ShardedMapper:
@@ -1400,7 +1448,7 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
                 with sample_span(job_ids[0]):
                     pending = _stream_pass1(job, index, dev, cfg, host_threads)
                     submit_upto(1 + workers)
-                    with span("resolve"):
+                    with span("resolve"), span(map_range(pending.counts)):
                         mapped = pending.resolve(index, dev)
                 call_futs.append((label, job[0], job_ids[0], call_pool.submit(
                     _call_one, job[0], index, dev, cfg, mapped,

@@ -1,8 +1,10 @@
 """The port's stage spans (utils/spans.py) on the CPU: the parts of `count`
-and the main thread's waits in SampleResult.seconds, how they add up to
-`count`, the `bronko.*` ranges in a profiler trace (every thread under
---profile-dir), nothing entered with the profiler off, the benchmark's
-readers of the new keys, and tools/torch_idle_by_span.py on a trace."""
+and `call` and the main thread's waits in SampleResult.seconds, how they
+add up to `count` and `call`, the `bronko.*` ranges in a profiler trace
+(every thread under --profile-dir), nothing entered with the profiler off,
+the sample's counts (SampleResult.counts and the `map` range's name), the
+benchmark's readers of the new keys, and tools/torch_idle_by_span.py on a
+trace."""
 
 import json
 import logging
@@ -33,7 +35,8 @@ KEYS = engine.STAGES + engine.SPAN_KEYS
 # each new metric of BENCHMARK.json: the key it reads and its scale
 READERS = {"inflate_s": ("inflate", 1.0), "parse_s": ("parse", 1.0),
            "finalize_s": ("finalize", 1.0), "text_wait_s": ("text_wait", 1.0),
-           "stream_dispatch_ms": ("dispatch", 1e3), "count_wait_s": ("count_wait", 1.0)}
+           "stream_dispatch_ms": ("dispatch", 1e3), "count_wait_s": ("count_wait", 1.0),
+           "noise_s": ("noise", 1.0), "variants_s": ("variants", 1.0), "write_s": ("write", 1.0)}
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +59,9 @@ def synth(tmp_path_factory):
     return tmp, ref, pairs, index, build_device_index(index, CPU)
 
 
-def _run(synth, out, monkeypatch, n=1, env=None, **kw):
+def _run(synth, out, monkeypatch, n=1, env=None, first=0, **kw):
     _, ref, pairs, index, dev = synth
+    pairs = pairs[first:]
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
     for k, v in (env or {}).items():
@@ -110,6 +114,54 @@ def test_count_splits_into_its_parts(synth, tmp_path, monkeypatch, path):
     assert s["count"] - parts <= 0.25 * s["count"] + 0.005
 
 
+def test_call_splits_into_its_parts(synth, tmp_path, monkeypatch):
+    """(f) Every sample's call holds the noise scan, the filter cascade and
+    the writers, and their sum lies within call; in the median of nine
+    calls it is within 5% of call. Each sample is a call of its own: in a
+    cohort the caller thread waits for the GIL while the main thread maps
+    the next sample, and a wait that falls between two spans belongs to
+    neither. The median leaves out a call that the host descheduled
+    between two spans."""
+    shares = []
+    for n in range(9):
+        (r,) = _run(synth, tmp_path / f"o{n}", monkeypatch, first=n % 3)
+        s = r.seconds
+        assert s["noise"] > 0 and s["variants"] > 0 and s["write"] > 0
+        assert s["noise"] + s["variants"] + s["write"] <= s["call"]
+        shares.append((s["noise"] + s["variants"] + s["write"]) / s["call"])
+    assert np.median(shares) >= 0.95
+
+
+@pytest.mark.parametrize("path", ["classic", "streamed", "serial"])
+def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch, path):
+    """(g) SampleResult.counts: the kept k-mer rows mapped (every k-mer the
+    counter kept, both mates), the device batches of --batch-size (on the
+    streamed path each partition's own, at most one more a partition) and
+    the index's histogram words a row (the single word here). `serial` is
+    process_sample, whose map uploads the batches itself."""
+    from bronko_tpu_torch.io import native
+
+    _, ref, pairs, index, dev = synth
+    if path == "serial":
+        cfg = CallConfig(genomes=[ref], first_pairs=[pairs[0][0]], second_pairs=[pairs[0][1]],
+                         output=str(tmp_path / "o"), batch_size=4096)
+        os.makedirs(cfg.output)
+        r = engine.process_sample(list(pairs[0]), index, dev, cfg)
+    else:
+        env = {"BRONKO_NO_STREAM": "1"} if path == "classic" else {"BRONKO_STREAM": "1"}
+        (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
+    s = r.summary
+    rows = r.counts["rows"]
+    assert set(r.counts) == {"rows", "batches", "words"}
+    assert rows == s.n_perfect + s.n_variant + s.n_unmapped > 4096
+    least = -(-rows // 4096)
+    if path != "streamed":
+        assert r.counts["batches"] == least
+    else:
+        assert least <= r.counts["batches"] <= least + 2 * native.NATIVE_COUNT_PARTS
+    assert r.counts["words"] == engine.hist_words(dev) == 1 and dev.hist is not None
+
+
 def _trace(prof, path):
     prof.export_chrome_trace(str(path))
     with open(path) as fh:
@@ -135,6 +187,28 @@ def test_spans_reach_the_trace_on_the_main_thread(synth, tmp_path, monkeypatch):
         for e in got:
             assert e["cat"] == "user_annotation" and e["tid"] == main
             assert w["ts"] <= e["ts"] and e["ts"] + e["dur"] <= w["ts"] + w["dur"]
+
+
+@pytest.mark.parametrize("path", ["classic", "streamed"])
+def test_map_range_is_named_with_the_counts(synth, tmp_path, monkeypatch, path):
+    """(h) Under a profiler the main thread's `map` range carries the
+    sample's counts in its name, and the tool folds it into `bronko.map`."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    try:
+        import torch_idle_by_span as tool
+    finally:
+        sys.path.pop(0)
+    env = {"BRONKO_NO_STREAM": "1"} if path == "classic" else {"BRONKO_STREAM": "1"}
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
+    prof.stop()
+    events = _trace(prof, tmp_path / "t.json")
+    name = "bronko." + engine.map_range(r.counts)
+    assert name == "bronko.map.rows={rows}.batches={batches}.words=1".format(**r.counts)
+    got = [e for e in events if e.get("name") == name and e.get("ph") == "X"]
+    assert len(got) == 1 and got[0]["tid"] == threading.get_native_id()
+    assert tool.fold(name) == "bronko.map"
 
 
 def test_profiler_off_enters_no_range(synth, tmp_path, monkeypatch):
@@ -214,6 +288,9 @@ def test_profile_dir_traces_every_thread(synth, tmp_path, monkeypatch, caplog, c
         assert "the profiler records the main thread only" not in caplog.text
         assert workers and all("bronko.count" in row for row in workers)
         assert any("bronko.call" in row and "bronko.resolve" in row for row in others.values())
+        caller = [row for row in others.values() if "bronko.call" in row]
+        for part in ("bronko.call.noise", "bronko.call.variants", "bronko.call.write"):
+            assert all(0 < row[part] <= row["bronko.call"] for row in caller), part
         assert any("bronko.count.inflate" in row for row in others.values())
     else:
         assert "the profiler records the main thread only" in caplog.text

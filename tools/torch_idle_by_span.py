@@ -10,7 +10,8 @@ busy while a kernel, copy or fill runs (the union of the `kernel`,
 window is the first range named `--window`, else the trace from its first
 to its last event. Each idle stretch is split by the main thread's
 innermost `bronko.*` range (utils/spans.py), `host` where none is open;
-`bronko.sample.<n>` ranges fold into `bronko.sample.*`. The main thread is
+`bronko.sample.<n>` ranges fold into `bronko.sample.*`, and a sample's
+`bronko.map.rows=<n>.batches=<n>.words=<n>` into `bronko.map`. The main thread is
 `--tid`, else the thread whose id is the process id. Then, for every
 thread, the seconds it spent in each `bronko.*` range (nested ranges
 count at each level). A trace without device events reads all idle.
@@ -28,6 +29,7 @@ HOST = "host"
 
 
 def fold(name: str) -> str:
+    name = re.sub(r"^bronko\.map\.rows=.*$", "bronko.map", name)
     return re.sub(r"^bronko\.sample\.\d+$", "bronko.sample.*", name)
 
 
