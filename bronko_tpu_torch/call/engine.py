@@ -21,7 +21,9 @@ goes through:
      (call/noise.py, call/variants.py, call/outputs.py).
 
 Each sample's SampleResult.counts holds what it mapped: its kept k-mer
-rows, its device batches and the index's histogram words a row.
+rows, its device batches and the index's histogram words a row; and how
+it was counted: `piped`, its mates the native counter counted while they
+inflated (io/native.py), 0, 1 or 2.
 
 With the saved probe on one device, the main thread only enqueues steps
 3-5, as JAX's engine does (engine.py:753-980). On the single histogram
@@ -159,7 +161,8 @@ class SampleResult:
     reads: int                   # reads counted
     seconds: dict[str, float]    # wall seconds by STAGES, then by SPAN_KEYS
     counts: dict[str, int]       # rows (kept k-mers mapped), batches (device batches),
-    #                              words (histogram words a row; 0 without one)
+    #                              words (histogram words a row; 0 without one),
+    #                              piped (mates counted while they inflated)
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex', 'fused'
     #                              or 'streamed')
 
@@ -175,7 +178,8 @@ def native_lib():
 
 def count_sample(path: str, cfg: CallConfig, k: int, device: torch.device,
                  threads: int | None = None, text=None,
-                 seconds: dict[str, float] | None = None
+                 seconds: dict[str, float] | None = None,
+                 counters: dict[str, int] | None = None
                  ) -> tuple[np.ndarray, np.ndarray, CountStats]:
     """Count one FASTQ's k-mers (KMC -ci/-cs semantics). Returns (ascending
     uint64 k-mers, int64 counts, stats). cfg.counter: 'host' is the native
@@ -185,13 +189,15 @@ def count_sample(path: str, cfg: CallConfig, k: int, device: torch.device,
     file it rejects), as the JAX engine chooses (engine.py:79-94). `text`
     is the file's inflated text from the inflate-ahead worker (the native
     counter's only; it closes it). The native counter's spans add their
-    seconds into `seconds`."""
+    seconds into `seconds`, and a file it counted while it inflated adds
+    1 to counters["piped"]."""
     if cfg.counter in ("auto", "host"):
         try:
             native_lib()
             kmers, counts, st = native.native_count_fastq(
                 path, k, cfg.min_kmers, KMER_COUNT_CAP,
-                threads=max(1, threads or cfg.threads), text=text, seconds=seconds)
+                threads=max(1, threads or cfg.threads), text=text, seconds=seconds,
+                counters=counters)
         except Exception as e:  # noqa: BLE001 — auto: any native failure
             if cfg.counter == "host":
                 raise
@@ -241,6 +247,7 @@ class Counted:
     cstats: CountStats
     batches: list | None         # device batches (upload=True), else None
     seconds: dict[str, float]    # 'count' and its parts, and 'h2d' when uploaded
+    piped: int = 0               # mates the native counter counted while they inflated
 
 
 def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
@@ -253,6 +260,7 @@ def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
     here too, on the calling worker thread. `pos` is the sample's input
     position, for its range in a trace."""
     seconds: dict[str, float] = {}
+    counters = {"piped": 0}
     with sample_span(pos):
         with span("count", seconds):
             try:
@@ -263,7 +271,7 @@ def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
                         with span("count.text_wait", seconds, "text_wait"):
                             text = texts[i].result()
                     parts.append(count_sample(p, cfg, k, device, threads=threads, text=text,
-                                              seconds=seconds))
+                                              seconds=seconds, counters=counters))
             finally:
                 for f in texts or []:
                     if f is not None:
@@ -281,7 +289,7 @@ def _count_job(paths: list[str], cfg: CallConfig, k: int, device: torch.device,
             # a copy from pageable host memory returns once it is done
             with span("h2d", seconds):
                 batches = to_batches(kmers, counts, cfg.batch_size, device)
-    return Counted(kmers, counts, cstats, batches, seconds)
+    return Counted(kmers, counts, cstats, batches, seconds, counters["piped"])
 
 
 def to_batches(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
@@ -406,8 +414,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _log_counted(display: str, cstats: CountStats, cfg: CallConfig, k: int) -> None:
-    log.info("%d reads counted from %s", cstats.total_reads, display)
+def _log_counted(display: str, cstats: CountStats, cfg: CallConfig, k: int,
+                 piped: int) -> None:
+    log.info("%d reads counted from %s, %d mate(s) while they inflated",
+             cstats.total_reads, display, piped)
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs)",
@@ -615,7 +625,7 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
-    mapped_counts = map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev)
+    mapped_counts = map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev, counted.piped)
     with span(map_range(mapped_counts)):
         seconds: dict[str, float] = {}
         device = dev.device if mapper is None else mapper.device
@@ -674,7 +684,7 @@ def process_sample(job: list[str], index: BronkoIndex, dev: DeviceIndex,
     [r1, r2]), in series: the cohort pipeline's pieces on one thread."""
     with sample_span(0):
         counted = _count_job(job, cfg, index.k, dev.device)
-        _log_counted(job[0], counted.cstats, cfg, index.k)
+        _log_counted(job[0], counted.cstats, cfg, index.k, counted.piped)
         if cfg.keep_kmer_counts:
             _dump_counts(job[0], counted, cfg, index.k)
         mapped = _map_one(counted, index, dev, cfg)
@@ -690,17 +700,18 @@ def hist_words(dev: DeviceIndex) -> int:
     return 0 if dev.hist_words is None else int(dev.hist_words.shape[1])
 
 
-def map_counts(rows: int, batches: int, dev: DeviceIndex) -> dict[str, int]:
-    """A sample's SampleResult.counts, which are also logged."""
+def map_counts(rows: int, batches: int, dev: DeviceIndex, piped: int) -> dict[str, int]:
+    """A sample's SampleResult.counts; what it maps is also logged (`piped`
+    is logged with the count)."""
     words = hist_words(dev)
     log.info("Mapping %d kept k-mer rows in %d device batch(es) against %d genomes, "
              "%d histogram word(s) a row", rows, batches, dev.num_genomes, words)
-    return {"rows": rows, "batches": batches, "words": words}
+    return {"rows": rows, "batches": batches, "words": words, "piped": piped}
 
 
 def map_range(counts: dict[str, int]) -> str:
-    """The name of a sample's `map` range, which carries its counts into a
-    trace (a range keeps its name but not its arguments)."""
+    """The name of a sample's `map` range, which carries what it maps into
+    a trace (a range keeps its name but not its arguments)."""
     return "map.rows={rows}.batches={batches}.words={words}".format(**counts)
 
 
@@ -1012,6 +1023,7 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
     count's parts go into the sample's seconds (io/native.py), each
     partition's upload and enqueue into `dispatch`."""
     seconds = {"h2d": 0.0}
+    counters = {"piped": 0}
     with span("count", seconds) as count_span:
         device = dev.device
         mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
@@ -1023,7 +1035,7 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         n_kmers = saved_bytes = 0
         for kmers, counts, stats in native.native_count_fastq_stream(
                 paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads,
-                seconds=seconds):
+                seconds=seconds, counters=counters):
             if stats is not None:
                 for f in totals:
                     totals[f] += stats[f]
@@ -1040,7 +1052,8 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
                 acc += tallies
                 parts.append((batches, lanes, saved))
     cstats = CountStats(**totals)
-    log.info("%d reads counted from %s (streamed)", cstats.total_reads, paths[0])
+    log.info("%d reads counted from %s (streamed), %d mate(s) while they inflated",
+             cstats.total_reads, paths[0], counters["piped"])
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs); dispatched in %.2fs",
@@ -1048,7 +1061,8 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         cstats.total_kmers, cstats.total_kmers * index.k, seconds["count"])
     log.info("Streamed %d partition(s), %d with a saved probe", len(parts),
              sum(saved is not None for *_, saved in parts))
-    counts = map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev)
+    counts = map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev,
+                        counters["piped"])
     log_memory_usage("Finished counting kmers", device)
     return PendingStream(acc, parts, mcfg, n_kmers, cstats, count_span.t0, count_span.t1,
                          seconds, counts)
@@ -1473,7 +1487,7 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
                     with span("count_wait", waited):
                         counted = fut.result()
                     counted.seconds.update(waited)
-                    _log_counted(display, counted.cstats, cfg, index.k)
+                    _log_counted(display, counted.cstats, cfg, index.k, counted.piped)
                     log_memory_usage("Finished counting kmers", device)
                     if cfg.keep_kmer_counts and (is_primary() or cfg.shard_samples):
                         _dump_counts(display, counted, cfg, index.k)

@@ -7,18 +7,32 @@ use with make (g++ and zlib) into `native/build/`, which git ignores, and
 rebuilt whenever a source is newer. Callers fall back to the pure-Python
 implementations when it is unavailable.
 
-`native_read_inflate` reads and inflates one FASTQ into a C++-owned buffer
-(`InflatedText`) that `native_count_fastq(..., text=)` then counts: the
-engine's inflate-ahead worker overlaps one sample's single-threaded inflate
-with another's multi-threaded parse and count. A file given by its path
-alone is read and inflated the same way, then counted, so every count
-splits into the same spans (utils/spans.py), whose seconds add into the
-caller's `seconds` dict: `inflate` (read and inflate, on whatever thread
-ran it; `inflate_ahead` the share another thread ran), `parse` (the
-multi-threaded parse and hash count), `finalize` (merge, sort, floor and
-cap, extract) and, on the streamed path, `text_wait` (blocked on the next
-mate's prefetch). A file past the whole-buffer cap is inflated by the C++
-streaming fallback inside its count, so its inflate falls in `parse`.
+The counter has three front ends (native/kmer_count.cpp):
+
+- text: `native_read_inflate` reads and inflates one FASTQ into a
+  C++-owned buffer (`InflatedText`) that `native_count_fastq(..., text=)`
+  then parses and counts on every thread. The engine's inflate-ahead
+  worker overlaps one sample's single-threaded inflate with another's
+  parse and count this way.
+- pipelined: a file given by its path alone that would inflate serially
+  (gzip, not BGZF, the parallel inflater's gate shut) or is past the
+  whole-buffer cap is counted from its path: the counter's reader thread
+  inflates it while the other threads parse and count what it has
+  inflated (`pipes`).
+- whole buffer: any other file given by its path alone (uncompressed,
+  BGZF, or gzip the parallel inflater takes) is read and inflated here
+  first, then counted as text.
+
+Every count splits into the same spans (utils/spans.py), whose seconds
+add into the caller's `seconds` dict: `inflate` (read and inflate, on
+whatever thread ran it; `inflate_ahead` the share another thread ran:
+the inflate-ahead worker's, the mate prefetch's, and the pipelined
+reader's, which runs beside the parse), `parse` (the multi-threaded
+parse and hash count, and on the pipelined front end everything from the
+file's open to its last record counted), `finalize` (merge, sort, floor
+and cap, extract) and, on the streamed path, `text_wait` (blocked on the
+next mate's prefetch). Each file counted while it inflated adds 1 to
+`counters["piped"]`.
 
 `native_count_fastq_stream` yields a sample's counted k-mers one key-range
 partition at a time, for the engine's streamed single-sample path.
@@ -123,6 +137,10 @@ def get_lib():
         lib.bronko_counter_count_text.restype = ctypes.c_int
         lib.bronko_counter_count_text.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.bronko_counter_pipes.restype = ctypes.c_int
+        lib.bronko_counter_pipes.argtypes = [ctypes.c_char_p]
+        lib.bronko_counter_inflate_seconds.restype = ctypes.c_double
+        lib.bronko_counter_inflate_seconds.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -172,13 +190,26 @@ def native_read_inflate(path: str, on_close=None) -> InflatedText:
                         seconds=time.perf_counter() - t0)
 
 
-def _add_inflate(seconds: dict | None, text: InflatedText, ahead: bool) -> None:
-    """Charge `text`'s read and inflate to the counting sample's seconds;
-    `ahead`: another thread ran it."""
+def _add_inflate(seconds: dict | None, s: float, ahead: bool) -> None:
+    """Charge s seconds of read and inflate to the counting sample's
+    seconds; `ahead`: another thread ran them."""
     if seconds is not None:
-        add_seconds(seconds, "inflate", text.seconds)
+        add_seconds(seconds, "inflate", s)
         if ahead:
-            add_seconds(seconds, "inflate_ahead", text.seconds)
+            add_seconds(seconds, "inflate_ahead", s)
+
+
+def pipes(path: str) -> bool:
+    """Whether the counter counts the file given by its path while it
+    inflates (the pipelined front end); False too when it cannot open it,
+    so that the read reports that."""
+    return get_lib().bronko_counter_pipes(path.encode()) == 1
+
+
+def _text_unless_piped(path: str) -> InflatedText | None:
+    """None for a file the counter reads from its path while it inflates,
+    else its text, read and inflated here."""
+    return None if pipes(path) else native_read_inflate(path)
 
 
 def _stats(lib, h, unique_counted: int) -> dict:
@@ -199,11 +230,14 @@ def _extract(lib, h, n: int) -> tuple[np.ndarray, np.ndarray]:
     return kmers, counts.astype(np.int64)
 
 
-def _count_into(lib, h, path: str, text: InflatedText | None) -> None:
+def _count_into(lib, h, path: str, text: InflatedText | None) -> bool:
     """Count one file into counter handle h: from the inflated text when
     there is one (closed here), else from the path. Maps the C return
-    codes to exceptions."""
-    if text is not None and text.handle is not None:
+    codes to exceptions. Returns whether it counted from the path: the
+    pipelined front end then inflated it on the counter's reader thread
+    (a text's file past the cap has no buffer, and pipes)."""
+    from_path = text is None or text.handle is None
+    if not from_path:
         try:
             rc = lib.bronko_counter_count_text(
                 h, lib.bronko_buffer_data(text.handle), text.size)
@@ -215,6 +249,15 @@ def _count_into(lib, h, path: str, text: InflatedText | None) -> None:
         raise OSError(f"cannot open {path}")
     if rc != 0:
         raise ValueError(f"malformed FASTQ: {path}")
+    return from_path
+
+
+def _add_piped(lib, h, seconds: dict | None, counters: dict | None) -> None:
+    """Charge a file counted from its path: its read and inflate ran on
+    the counter's reader thread, beside the parse."""
+    _add_inflate(seconds, float(lib.bronko_counter_inflate_seconds(h)), True)
+    if counters is not None:
+        counters["piped"] = counters.get("piped", 0) + 1
 
 
 def _create(lib, k: int, threads: int):
@@ -226,26 +269,32 @@ def _create(lib, k: int, threads: int):
 
 def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
                        threads: int = 4, text: InflatedText | None = None,
-                       seconds: dict[str, float] | None = None):
+                       seconds: dict[str, float] | None = None,
+                       counters: dict[str, int] | None = None):
     """Count a FASTQ file's k-mers entirely in C++ (multithreaded pipeline).
 
     Returns (kmers u64 sorted, counts int64, stats dict), with KMC -b
     -ci<min> -cs<cap> semantics like ops/count.KmerCounter. `threads` is
     the total thread budget; the C++ side picks the split. `text` (from
     native_read_inflate on another thread) stands for the read and
-    inflate, else they run here first; it is closed here. The spans'
-    seconds add into `seconds` (the module's docstring)."""
+    inflate; without it the file is counted while it inflates or, where
+    the counter would not pipe it, read and inflated here first. `text`
+    is closed here. The spans' seconds add into `seconds` and the count
+    of piped files into `counters` (the module's docstring)."""
     lib = get_lib()
     assert lib is not None
     ahead = text is not None
     if text is None:
-        text = native_read_inflate(path)
-    _add_inflate(seconds, text, ahead)
+        text = _text_unless_piped(path)
+    if text is not None:
+        _add_inflate(seconds, text.seconds, ahead)
     h = None
     try:
         with span("count.parse", seconds, "parse"):
             h = _create(lib, k, threads)
-            _count_into(lib, h, path, text)
+            piped = _count_into(lib, h, path, text)
+        if piped:
+            _add_piped(lib, h, seconds, counters)
         with span("count.finalize", seconds, "finalize"):
             n = int(lib.bronko_counter_finalize(h, min_count, count_cap))
             kmers, counts = _extract(lib, h, n)
@@ -254,7 +303,8 @@ def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
             h = None
         return kmers, counts, stats
     finally:
-        text.close()
+        if text is not None:
+            text.close()
         if h:
             lib.bronko_counter_destroy(h)
 
@@ -265,42 +315,48 @@ NATIVE_COUNT_PARTS = 4  # key-range partitions of the streamed finalize
 
 def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                               count_cap: int, threads: int = 4,
-                              seconds: dict[str, float] | None = None):
+                              seconds: dict[str, float] | None = None,
+                              counters: dict[str, int] | None = None):
     """Count each file, then yield the sorted unique (kmers u64, counts
     int64, stats or None) of each of its NATIVE_COUNT_PARTS key-range
     partitions: a path's first finalize merges all of them across threads,
     and the caller sends each to the device as it comes. Partitions in order are
     native_count_fastq's output. Each path has its own counter (paired
     mates are separate k-mer streams); stats come with a path's last
-    partition. Mate i+1 is read and inflated on a helper thread while mate
-    i counts, so at most two inflated buffers are live; a prefetch still
-    in flight when a count fails or the consumer abandons the generator
-    is closed (JAX io/native.py:215-284). The spans' seconds add into
-    `seconds` (the module's docstring); each closes before its yield, so
-    the consumer's work between partitions lies in none of them."""
+    partition. Path 0 is counted from its path where the counter pipes
+    it, else read and inflated here first; mate i+1 is read and inflated
+    on a helper thread while mate i counts, so at most two inflated
+    buffers are live; a prefetch still in flight when a count fails or
+    the consumer abandons the generator is closed (JAX
+    io/native.py:215-284). The spans' seconds add into `seconds` and the
+    count of piped files into `counters` (the module's docstring); each
+    span closes before its yield, so the consumer's work between
+    partitions lies in none of them."""
     from concurrent.futures import ThreadPoolExecutor
 
     lib = get_lib()
     assert lib is not None
     with ThreadPoolExecutor(max_workers=1) as pool:
-        # path 0 is read and inflated here; path i+1 is submitted just
-        # before path i counts
+        # path i+1 is submitted just before path i counts
         next_tf = pool.submit(native_read_inflate, paths[1]) if len(paths) > 1 else None
         try:
             for i, path in enumerate(paths):
                 if i == 0:
-                    text = native_read_inflate(path)
+                    text = _text_unless_piped(path)
                 else:
                     with span("count.text_wait", seconds, "text_wait"):
                         text = next_tf.result()
                     next_tf = (pool.submit(native_read_inflate, paths[i + 1])
                                if i + 1 < len(paths) else None)
-                _add_inflate(seconds, text, i > 0)
+                if text is not None:
+                    _add_inflate(seconds, text.seconds, i > 0)
                 h = None
                 try:
                     with span("count.parse", seconds, "parse"):
                         h = _create(lib, k, threads)
-                        _count_into(lib, h, path, text)
+                        piped = _count_into(lib, h, path, text)
+                    if piped:
+                        _add_piped(lib, h, seconds, counters)
                     unique_counted = 0
                     for part in range(NATIVE_COUNT_PARTS):
                         with span("count.finalize", seconds, "finalize"):
@@ -315,7 +371,8 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                         lib.bronko_counter_destroy(h)
                         h = None
                 finally:
-                    text.close()
+                    if text is not None:
+                        text.close()
                     if h:
                         lib.bronko_counter_destroy(h)
         finally:

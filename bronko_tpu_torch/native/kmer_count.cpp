@@ -4,20 +4,26 @@
 // contain non-ACGT bases, flooring at ci and capping at cs
 // (reference invocation: call.rs:1166-1181).
 //
-// Two front ends feed the same per-thread open-addressing tables:
+// Three front ends feed the same per-thread open-addressing tables:
 //
-//  * whole-buffer (the common case, files up to a few hundred MB
-//    compressed): the file is read once, inflated in one shot (libdeflate
-//    via dlopen when present — measured ~2.5x zlib — else zlib), cut into
-//    record-aligned slices by newline phase (a vectorized newline count
-//    per region + <=3 memchr steps to reach the next 4-line boundary),
-//    and the slices are parsed AND counted by the worker threads. The
-//    producer thread does no per-record work at all, so the pipeline's
-//    serial section is just inflate.
-//  * streaming (large-file fallback): one reader thread decompresses and
-//    cuts the stream into record-aligned raw blocks; workers parse AND
-//    count the blocks with the same slice parser the whole-buffer path
-//    uses, so inflate is the reader's only serial work.
+//  * whole-buffer, for a file under the whole-buffer cap whose inflate is
+//    parallel or absent: uncompressed FASTQ, BGZF, and plain gzip that
+//    bronko_gzp::parallel_inflate's gate takes. The file is read once,
+//    inflated in one shot (parallel BGZF or pugz-style blocks; else
+//    libdeflate via dlopen when present — measured ~2.5x zlib — else
+//    zlib), cut into record-aligned slices by newline phase (a newline
+//    count per region + <=3 memchr steps to reach the next 4-line
+//    boundary), and the slices are parsed AND counted by all the threads.
+//  * pipelined, for every other file: gzip under the cap that would
+//    inflate serially (not BGZF, and the parallel inflater's gate shut:
+//    BRONKO_PARALLEL_GZ off, fewer than 8 hardware threads, or under its
+//    minimum size), and any file past the cap. One reader thread inflates
+//    with zlib into record-aligned blocks while threads-1 workers parse
+//    AND count them with the same slice parser, so the parse runs beside
+//    the inflate instead of after it. Its acceptance is read_inflate's.
+//  * text (bronko_counter_count_text): an already-inflated buffer from
+//    bronko_read_inflate, parsed like the whole-buffer path's; the
+//    engine's inflate-ahead worker made it on another thread.
 //
 // Both finalizes share one merge (merge_parts): each table is scanned once,
 // one thread a table, into 8 sorted key-range partitions that merge one
@@ -32,13 +38,19 @@
 
 #include "gz_parallel.h"
 
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <deque>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -109,7 +121,7 @@ struct Table {
   inline void insert_at(uint64_t key, size_t i, uint32_t add) {
     while (true) {
       if (keys[i] == key) {
-        // saturate: the streaming path has no input-size cap, and one
+        // saturate: the pipelined front end has no input-size cap, and one
         // ultra-abundant k-mer (poly-A in a >100 GB stream) can exceed
         // 2^32 in a single table — a wrapped count would then beat the
         // ci floor or misreport cs. One predictable extra op.
@@ -156,8 +168,12 @@ inline void flush_kmers(Table& t, const uint64_t* kb, int n) {
   }
 }
 
-struct Batch {
-  std::vector<char> seq;  // record-aligned raw FASTQ text
+// A block of the pipelined front end: record-aligned FASTQ text in
+// data[0, len). Blocks go back to the counter's spares once parsed, so a
+// count touches the memory of a few blocks and not of the whole text.
+struct Block {
+  std::unique_ptr<char[]> data;
+  size_t cap = 0, len = 0;
 };
 
 // One sorted key-range partition of the merged output: the ci-surviving
@@ -184,12 +200,14 @@ struct Counter {
   std::vector<MergedPart> parts;
   bool merged = false;
 
-  // streaming-pipeline state
+  // pipelined front end's state
   std::mutex mu;
   std::condition_variable cv_put, cv_get;
-  std::deque<Batch> queue;
+  std::deque<Block> queue;
+  std::vector<Block> spare;
   bool done = false;
   static constexpr size_t kMaxQueue = 8;
+  double inflate_s = 0;  // the reader's read and inflate, wall seconds
 
   explicit Counter(int k_, int threads) : k(k_), n_threads(threads) {
     memset(code, 4, sizeof(code));
@@ -220,10 +238,9 @@ struct Counter {
   }
 };
 
-constexpr size_t kReadBlock = 8 << 20;
 // whole-buffer front-end input caps (compressed gz ~8x smaller than text);
 // BRONKO_WHOLEBUF_MAX (bytes) overrides both — tests use it to force the
-// streaming path on small fixtures
+// pipelined front end on small fixtures of any kind
 constexpr size_t kWholeBufMaxGz = 192ull << 20;     // ~1.5 GB inflated
 constexpr size_t kWholeBufMaxPlain = 1536ull << 20;
 
@@ -521,7 +538,7 @@ std::vector<const char*> record_cuts(const char* lo, const char* hi,
 }
 
 // Parse + count one record-aligned slice. Returns the number of reads, or
-// -1 on malformed input. Record-acceptance semantics match the streaming
+// -1 on malformed input. Record-acceptance semantics match the pipelined
 // reader: a record needs its header/seq/plus newlines; the final quality
 // newline is optional at EOF; a record truncated earlier is dropped.
 int64_t parse_count(Counter* c, Table& t, int64_t& nk,
@@ -582,23 +599,57 @@ int count_text(Counter* c, const char* text, size_t size) {
   return 0;
 }
 
-// Whole-buffer eligibility: the file's byte size when it fits the
-// front-end cap for its kind (gzip sniffed from the magic), -1 when it
-// must stream, -2 on open failure. Shared by count_fastq and
-// read_inflate so their wholebuf-vs-streaming decisions cannot drift.
-int64_t whole_buf_size(const char* path) {
+// What the head of a file says: its byte size, whether it is gzip (the
+// magic), and whether that gzip is BGZF (its first member carries the
+// 'BC' subfield). False on open failure.
+struct FileHead {
+  int64_t size = 0;
+  bool gz = false, bgzf = false;
+};
+
+bool read_head(const char* path, FileHead& fh) {
   struct stat st;
-  if (stat(path, &st) != 0) return -2;
-  bool gz = false;
-  {
-    FILE* f = fopen(path, "rb");
-    if (!f) return -2;
-    unsigned char head[2];
-    size_t got = fread(head, 1, 2, f);
-    fclose(f);
-    gz = got == 2 && head[0] == 0x1f && head[1] == 0x8b;
+  if (stat(path, &st) != 0) return false;
+  FILE* f = fopen(path, "rb");
+  if (!f) return false;
+  unsigned char h[12];
+  size_t got = fread(h, 1, sizeof(h), f);
+  fh.size = (int64_t)st.st_size;
+  fh.gz = got >= 2 && h[0] == 0x1f && h[1] == 0x8b;
+  if (fh.gz && got == sizeof(h) && (h[3] & 4)) {  // FEXTRA
+    std::vector<unsigned char> x(h[10] | ((size_t)h[11] << 8));
+    x.resize(fread(x.data(), 1, x.size(), f));
+    for (size_t sub = 0; sub + 4 <= x.size();
+         sub += 4 + (x[sub + 2] | ((size_t)x[sub + 3] << 8)))
+      if (x[sub] == 'B' && x[sub + 1] == 'C' && x[sub + 2] == 2 && !x[sub + 3]) {
+        fh.bgzf = true;
+        break;
+      }
   }
-  return (size_t)st.st_size <= whole_buf_cap(gz) ? (int64_t)st.st_size : -1;
+  fclose(f);
+  return true;
+}
+
+// Whole-buffer eligibility: the file's byte size when it fits the
+// front-end cap for its kind, -1 when it must stream, -2 on open failure.
+// Shared by count_fastq and read_inflate so their cap decisions cannot
+// drift.
+int64_t whole_buf_size(const char* path) {
+  FileHead fh;
+  if (!read_head(path, fh)) return -2;
+  return (size_t)fh.size <= whole_buf_cap(fh.gz) ? fh.size : -1;
+}
+
+// Whether count_fastq takes the pipelined front end for the file: past
+// the cap, or gzip that the whole-buffer path would inflate serially
+// (not BGZF, and parallel_inflate's gate shut). 1 or 0, with the file's
+// size in *size; -1 on open failure.
+int pipes(const char* path, int64_t* size) {
+  FileHead fh;
+  if (!read_head(path, fh)) return -1;
+  *size = fh.size;
+  if ((size_t)fh.size > whole_buf_cap(fh.gz)) return 1;
+  return fh.gz && !fh.bgzf && !bronko_gzp::engages((size_t)fh.size);
 }
 
 // Read a file and (if gzip) inflate it. Returns 0 and the text in `out`,
@@ -627,19 +678,52 @@ int count_wholebuf(Counter* c, const char* path, size_t fsize) {
   return count_text(c, text.data(), text.size());
 }
 
-// ---------- streaming fallback (large files) ----------
+// ---------- pipelined front end ----------
 //
-// The reader's ONLY serial work is inflate: it emits record-ALIGNED raw
-// text blocks (boundary = after the newline whose count since the block
-// start — itself a record boundary — is a multiple of 4), and the workers
-// run the same parse_count the whole-buffer path uses. The old reader
-// split and copied every record itself, which bottlenecked the pipeline
-// on one thread.
+// The reader's only serial work is the read and inflate: it inflates with
+// zlib straight into a block and, once the block is full, cuts it after
+// the newline whose count since the block start (itself a record
+// boundary) is a multiple of 4, hands the record-aligned part to the
+// workers, and carries the tail (less than a record) into the next
+// block. The workers run the same parse_count the whole-buffer path uses.
+// Acceptance is read_inflate's: every gzip member is read; after at least
+// one, trailing bytes without gzip magic end the stream; a truncated or
+// corrupt member fails the count.
 
-int count_streaming(Counter* c, const char* path) {
-  gzFile gz = gzopen(path, "rb");
-  if (!gz) return -1;
-  gzbuffer(gz, 1 << 20);
+// 1 MB blocks: the last block still parses after the inflate has ended,
+// ~13 ms on one worker at ~75 MB/s of FASTQ text
+constexpr size_t kBlockBytes = 1 << 20;
+constexpr size_t kInBytes = 1 << 20;  // compressed bytes a read
+
+// '\n' bytes in [p, p + n): the reader's one pass over its text, 16
+// bytes a step where SSE2 is there
+size_t count_newlines(const char* p, size_t n) {
+  size_t cnt = 0, i = 0;
+#if defined(__SSE2__)
+  const __m128i nl = _mm_set1_epi8('\n');
+  const __m128i zero = _mm_setzero_si128();
+  while (n - i >= 16) {
+    // byte lanes count up to 255 matches, then fold into the total
+    const size_t stop = i + std::min<size_t>((n - i) / 16, 255) * 16;
+    __m128i acc = zero;
+    for (; i < stop; i += 16)
+      acc = _mm_sub_epi8(acc, _mm_cmpeq_epi8(
+          _mm_loadu_si128((const __m128i*)(p + i)), nl));
+    const __m128i sums = _mm_sad_epu8(acc, zero);
+    cnt += (size_t)_mm_cvtsi128_si32(sums) +
+           (size_t)_mm_cvtsi128_si32(_mm_unpackhi_epi64(sums, sums));
+  }
+#endif
+  for (; i < n; ++i) cnt += p[i] == '\n';
+  return cnt;
+}
+
+int count_pipelined(Counter* c, const char* path) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  using Clock = std::chrono::steady_clock;
+  const Clock::time_point t0 = Clock::now();
+  double waited = 0;  // the reader's waits for room in the queue
 
   const int n_workers = std::max(1, c->n_threads - 1);
   c->done = false;
@@ -651,7 +735,7 @@ int count_streaming(Counter* c, const char* path) {
       Table& tab = c->tables[t];
       int64_t& nk = c->thread_kmers[t];
       while (true) {
-        Batch b;
+        Block b;
         {
           std::unique_lock<std::mutex> lk(c->mu);
           c->cv_get.wait(lk, [&] { return !c->queue.empty() || c->done; });
@@ -660,75 +744,155 @@ int count_streaming(Counter* c, const char* path) {
           c->queue.pop_front();
         }
         c->cv_put.notify_one();
-        int64_t r = parse_count(c, tab, nk, b.seq.data(),
-                                b.seq.data() + b.seq.size());
+        int64_t r = parse_count(c, tab, nk, b.data.get(), b.data.get() + b.len);
         if (r < 0) malformed.store(true);
         else reads_w[t] += r;
+        b.len = 0;
+        std::lock_guard<std::mutex> lk(c->mu);
+        c->spare.push_back(std::move(b));
       }
     });
 
-  auto push_block = [&](std::vector<char>&& text) {
-    Batch b;
-    b.seq = std::move(text);
+  auto take_block = [&](size_t at_least) {
+    Block b;
+    {
+      std::lock_guard<std::mutex> lk(c->mu);
+      if (!c->spare.empty()) {
+        b = std::move(c->spare.back());
+        c->spare.pop_back();
+      }
+    }
+    if (b.cap < at_least) {
+      b.cap = std::max(kBlockBytes, at_least);
+      b.data.reset(new char[b.cap]);
+    }
+    return b;
+  };
+  auto push_block = [&](Block&& b) {
     {
       std::unique_lock<std::mutex> lk(c->mu);
-      c->cv_put.wait(lk, [&] { return c->queue.size() < Counter::kMaxQueue; });
+      if (c->queue.size() >= Counter::kMaxQueue) {
+        const Clock::time_point w0 = Clock::now();
+        c->cv_put.wait(lk, [&] { return c->queue.size() < Counter::kMaxQueue; });
+        waited += std::chrono::duration<double>(Clock::now() - w0).count();
+      }
       c->queue.push_back(std::move(b));
     }
     c->cv_get.notify_one();
   };
 
-  int rc = 0;
-  std::vector<char> buf;  // always begins at a record boundary
-  size_t nl_cnt = 0;      // newlines in buf (incremental)
-  bool eof = false;
-  while (!eof && rc == 0 && !malformed.load()) {
-    size_t old = buf.size();
-    buf.resize(old + kReadBlock);
-    int n = gzread(gz, buf.data() + old, (unsigned)kReadBlock);
-    if (n < 0) { rc = -2; break; }
-    buf.resize(old + (size_t)n);
-    if (n == 0) {
-      // a TRUNCATED gzip stream surfaces as n==0 with a pending zlib
-      // error (Z_BUF_ERROR "unexpected end of file"), not as n<0 —
-      // treating it as EOF would silently count a prefix of the sample
-      int errnum = Z_OK;
-      gzerror(gz, &errnum);
-      if (errnum != Z_OK && errnum != Z_STREAM_END) rc = -2;
-      eof = true;
-      break;
-    }
-    for (size_t i = old; i < buf.size(); ++i) nl_cnt += (buf[i] == '\n');
-    // cut after the newline whose count from the block start is the
-    // largest multiple of 4: step back (nl_cnt % 4) newlines from the last
-    int back = (int)(nl_cnt & 3);
+  Block blk = take_block(kBlockBytes);
+  size_t nl_cnt = 0;   // newlines in blk.data[0, scanned)
+  size_t scanned = 0;
+  // blk is full: hand its record-aligned part to the workers and carry
+  // the tail into a fresh block; a block holding no whole record grows
+  auto cut_full = [&]() {
+    nl_cnt += count_newlines(blk.data.get() + scanned, blk.len - scanned);
+    scanned = blk.len;
+    // step back (nl_cnt % 4) newlines from the last one
+    const int back = (int)(nl_cnt & 3);
     const char* last_ok = nullptr;
-    size_t q = buf.size();
+    size_t q = blk.len;
     for (int i = 0; i <= back; ++i) {
-      const void* nl = memrchr(buf.data(), '\n', q);
-      if (!nl) { last_ok = nullptr; break; }
-      last_ok = (const char*)nl;
-      q = (size_t)((const char*)nl - buf.data());
+      last_ok = (const char*)memrchr(blk.data.get(), '\n', q);
+      if (!last_ok) break;
+      q = (size_t)(last_ok - blk.data.get());
     }
-    if (!last_ok) continue;  // no full record yet; keep reading
-    size_t cut = (size_t)(last_ok - buf.data()) + 1;
-    if (cut == 0) continue;
-    std::vector<char> tail(buf.begin() + cut, buf.end());
-    buf.resize(cut);
-    push_block(std::move(buf));
-    buf = std::move(tail);
-    nl_cnt = back;  // the tail holds exactly the stepped-back newlines
+    if (!last_ok) {
+      Block big = take_block(blk.cap * 2);
+      memcpy(big.data.get(), blk.data.get(), blk.len);
+      big.len = blk.len;
+      blk = std::move(big);
+      return;
+    }
+    const size_t cut = (size_t)(last_ok - blk.data.get()) + 1;
+    Block next = take_block(blk.len - cut + 1);
+    next.len = blk.len - cut;
+    memcpy(next.data.get(), blk.data.get() + cut, next.len);
+    blk.len = cut;
+    push_block(std::move(blk));
+    blk = std::move(next);
+    nl_cnt = (size_t)back;  // the tail holds exactly the stepped-back newlines
+    scanned = blk.len;
+  };
+
+  int rc = 0;
+  unsigned char magic[2] = {0, 0};
+  const size_t head = fread(magic, 1, 2, f);
+  if (head == 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
+    z_stream zs{};
+    std::unique_ptr<unsigned char[]> in(new unsigned char[kInBytes]);
+    memcpy(in.get(), magic, 2);
+    zs.next_in = in.get();
+    zs.avail_in = 2;
+    bool in_eof = false;
+    // keep what inflate has not consumed, then fill the rest of `in`
+    auto refill = [&]() {
+      memmove(in.get(), zs.next_in, zs.avail_in);
+      const size_t want = kInBytes - zs.avail_in;
+      const size_t got = fread(in.get() + zs.avail_in, 1, want, f);
+      in_eof = got < want;
+      zs.next_in = in.get();
+      zs.avail_in += (uInt)got;
+    };
+    if (inflateInit2(&zs, 16 + MAX_WBITS) != Z_OK) {
+      rc = -2;
+    } else {
+      size_t produced = 0;
+      // whether the member being inflated starts with gzip magic (the
+      // first does): only such a member's failure fails the count
+      bool member_real = true;
+      while (!malformed.load()) {
+        if (zs.avail_in == 0 && !in_eof) refill();
+        if (blk.len == blk.cap) cut_full();
+        zs.next_out = (Bytef*)(blk.data.get() + blk.len);
+        zs.avail_out = (uInt)std::min<size_t>(blk.cap - blk.len, 1u << 30);
+        const int r = inflate(&zs, Z_NO_FLUSH);
+        const size_t got = (size_t)((char*)zs.next_out - (blk.data.get() + blk.len));
+        blk.len += got;
+        produced += got;
+        if (r == Z_STREAM_END) {
+          if (zs.avail_in < 2 && !in_eof) refill();
+          if (zs.avail_in == 0) break;  // the last member ended the file
+          member_real = zs.avail_in >= 2 && zs.next_in[0] == 0x1f &&
+                        zs.next_in[1] == 0x8b;
+          if (inflateReset2(&zs, 16 + MAX_WBITS) != Z_OK) break;
+          continue;
+        }
+        // a data error, or the input ran out mid-member (Z_BUF_ERROR):
+        // tolerated only as trailing garbage after a decoded member
+        if (r != Z_OK) {
+          if (produced == 0 || member_real) rc = -2;
+          break;
+        }
+      }
+      inflateEnd(&zs);
+    }
+  } else {
+    // plain text (only past the cap): the read is the reader's work
+    blk.len = head;
+    memcpy(blk.data.get(), magic, head);
+    while (head == 2 && !malformed.load()) {
+      if (blk.len == blk.cap) cut_full();
+      const size_t got = fread(blk.data.get() + blk.len, 1, blk.cap - blk.len, f);
+      if (got == 0) break;
+      blk.len += got;
+    }
   }
-  if (rc == 0 && !buf.empty() && !malformed.load())
-    push_block(std::move(buf));  // final partial block (EOF truncation
+  if (ferror(f)) rc = -2;
+  fclose(f);
+  if (rc == 0 && blk.len && !malformed.load())
+    push_block(std::move(blk));  // the last records (EOF truncation
                                  // semantics live in parse_count)
+  c->inflate_s +=
+      std::chrono::duration<double>(Clock::now() - t0).count() - waited;
   {
     std::lock_guard<std::mutex> lk(c->mu);
     c->done = true;
   }
   c->cv_get.notify_all();
   for (auto& w : workers) w.join();
-  gzclose(gz);
+  c->spare.clear();
   if (rc == 0 && malformed.load()) rc = -2;
   for (int64_t r : reads_w) c->total_reads += r;
   return rc;
@@ -853,17 +1017,34 @@ void* bronko_counter_create(int k, int threads) {
 
 void bronko_counter_destroy(void* h) { delete static_cast<Counter*>(h); }
 
-// Count one FASTQ file (gz or plain). `threads` at create time is the
-// TOTAL budget: the whole-buffer front end parses+counts on all of them
-// (the producer is idle after the one-shot inflate); the streaming
-// fallback runs one reader + threads-1 counters.
-// Returns 0 on success, -1 on open failure, -2 on malformed input.
+// Count one FASTQ file (gz or plain) through the front end pipes()
+// picks. `threads` at create time is the TOTAL budget: the whole-buffer
+// front end parses+counts on all of them (the producer is idle after the
+// one-shot inflate); the pipelined one runs one reader + threads-1
+// counters. Returns 0 on success, -1 on open failure, -2 on malformed
+// input.
 int bronko_counter_count_fastq(void* h, const char* path) {
   auto* c = static_cast<Counter*>(h);
-  int64_t fsize = whole_buf_size(path);
-  if (fsize == -2) return -1;
-  if (fsize >= 0) return count_wholebuf(c, path, (size_t)fsize);
-  return count_streaming(c, path);
+  int64_t fsize = 0;
+  const int piped = pipes(path, &fsize);
+  if (piped < 0) return -1;
+  if (piped) return count_pipelined(c, path);
+  return count_wholebuf(c, path, (size_t)fsize);
+}
+
+// 1 when bronko_counter_count_fastq counts the file while it inflates
+// (the pipelined front end), 0 when it inflates first (whole buffer), -1
+// when the file cannot be opened.
+int bronko_counter_pipes(const char* path) {
+  int64_t fsize = 0;
+  return pipes(path, &fsize);
+}
+
+// Wall seconds the pipelined front end's reader spent reading and
+// inflating for this handle, its waits for the workers left out; 0 when
+// the handle counted no file that way.
+double bronko_counter_inflate_seconds(void* h) {
+  return static_cast<Counter*>(h)->inflate_s;
 }
 
 // Read + inflate a FASTQ file into a buffer for a later
@@ -872,7 +1053,7 @@ int bronko_counter_count_fastq(void* h, const char* path) {
 // inflate-ahead worker). Returns an opaque buffer handle (free with
 // bronko_buffer_free) and writes the text size to *out_size; returns NULL
 // with *out_size = -1 when the file exceeds the whole-buffer cap (caller
-// falls back to bronko_counter_count_fastq's streaming path) or -2 on
+// falls back to bronko_counter_count_fastq's pipelined front end) or -2 on
 // open/corrupt failure.
 void* bronko_read_inflate(const char* path, int64_t* out_size) {
   int64_t fsize = whole_buf_size(path);

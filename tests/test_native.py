@@ -376,3 +376,157 @@ def test_counter_rejects_unsupported_k(tmp_path):
         fh.write("@r\nACGT\n+\nIIII\n")
     with pytest.raises(ValueError, match="supported range"):
         native_count_fastq(p, 40, 1, 1_000_000)
+
+
+# ---- the port's counter: the pipelined front end against the whole buffer ----
+
+PIPED_ENV = ("BRONKO_PARALLEL_GZ", "BRONKO_PARALLEL_GZ_THREADS", "BRONKO_PARALLEL_GZ_MIN",
+             "BRONKO_WHOLEBUF_MAX")
+# the parallel inflater's gate: shut (off, or auto under 8 threads) or open
+# (forced, or auto at 8 threads), each at a minimum size this text passes
+GATE_SHUT = [{"BRONKO_PARALLEL_GZ": "0"},
+             {"BRONKO_PARALLEL_GZ_THREADS": "4", "BRONKO_PARALLEL_GZ_MIN": "0"}]
+GATE_OPEN = [{"BRONKO_PARALLEL_GZ": "1", "BRONKO_PARALLEL_GZ_MIN": "0"},
+             {"BRONKO_PARALLEL_GZ_THREADS": "8", "BRONKO_PARALLEL_GZ_MIN": "0"}]
+
+
+@pytest.fixture(scope="module")
+def piped_text():
+    """~11 MB of FASTQ (reads of 60-240 bp with N's, some CRLF records)
+    and a gzip of it: many of the pipelined reader's 1 MB blocks, so
+    records straddle its cuts."""
+    import zlib
+
+    rng = np.random.default_rng(23)
+    n = 36_000
+    lens = rng.integers(60, 241, size=n)
+    bases = np.frombuffer(b"ACGTN", np.uint8)[
+        rng.choice(5, size=int(lens.sum()), p=[0.245, 0.245, 0.245, 0.245, 0.02])].tobytes()
+    recs, o = [], 0
+    for i, ln in enumerate(lens.tolist()):
+        eol = "\r\n" if i % 97 == 0 else "\n"
+        seq = bases[o:o + ln].decode()
+        o += ln
+        recs.append(f"@r{i} x{eol}{seq}{eol}+{eol}{'I' * ln}{eol}")
+    text = "".join(recs).encode()
+    co = zlib.compressobj(1, zlib.DEFLATED, 31)
+    return text, co.compress(text) + co.flush()
+
+
+def _set_env(monkeypatch, env):
+    for k in PIPED_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+def _piped_file(tmp_path, piped_text, kind):
+    import gzip
+
+    text, gz = piped_text
+    path = str(tmp_path / ("x.fastq" if kind == "plain" else "x.fastq.gz"))
+    half = len(text) // 2
+    data = {"plain": text, "gzip": gz,
+            "multi-member": gzip.compress(text[:half], 1) + gzip.compress(text[half:], 6),
+            "bgzf": b"".join(_bgzf_block(text[o:o + 60000])
+                             for o in range(0, len(text), 60000)) + _bgzf_block(b"")}[kind]
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return path
+
+
+@pytest.mark.parametrize("kind,env,piped", [
+    *[("gzip", e, True) for e in GATE_SHUT],
+    *[("multi-member", e, True) for e in GATE_SHUT],
+    ("gzip", {"BRONKO_PARALLEL_GZ_THREADS": "8", "BRONKO_PARALLEL_GZ_MIN": str(1 << 30)}, True),
+    *[("gzip", e, False) for e in GATE_OPEN],
+    ("multi-member", GATE_OPEN[0], False),
+    *[("plain", e, False) for e in GATE_SHUT],
+    *[("bgzf", e, False) for e in GATE_SHUT],
+    ("plain", {"BRONKO_WHOLEBUF_MAX": "0"}, True),
+], ids=["gzip-off", "gzip-4threads", "multi-off", "multi-4threads", "gzip-under-min",
+        "gzip-forced", "gzip-8threads", "multi-forced", "plain-off", "plain-4threads",
+        "bgzf-off", "bgzf-4threads", "plain-past-cap"])
+def test_gate_picks_the_pipelined_front_end(tmp_path, monkeypatch, piped_text, kind, env, piped):
+    """The port's counter counts a file from its path while it inflates
+    (the pipelined front end) when the whole buffer would inflate it
+    serially: gzip or multi-member gzip with the parallel inflater's gate
+    shut, and any file past the whole-buffer cap; uncompressed, BGZF and
+    gzip the parallel inflater takes keep the whole buffer. Either way the
+    k-mers, counts and stats equal those of the file's inflated text, and
+    only a piped file charges its reader's inflate, beside the parse."""
+    from bronko_tpu_torch.io import native as torch_native
+
+    _set_env(monkeypatch, env)
+    path = _piped_file(tmp_path, piped_text, kind)
+    assert torch_native.pipes(path) == piped
+    seconds, counters = {}, {}
+    got = torch_native.native_count_fastq(path, 21, 2, 1_000_000, threads=4,
+                                          seconds=seconds, counters=counters)
+    assert counters.get("piped", 0) == int(piped)
+    assert (seconds.get("inflate_ahead", 0) > 0) == piped and seconds["inflate"] > 0
+    _set_env(monkeypatch, {})
+    text = torch_native.native_read_inflate(path)
+    assert text.size == len(piped_text[0])
+    want = torch_native.native_count_fastq(path, 21, 2, 1_000_000, threads=4, text=text)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and got[2]["total_reads"] == 36_000
+
+
+@pytest.mark.parametrize("front_end", ["pipelined", "whole-buffer"])
+@pytest.mark.parametrize("tail", ["garbage", "truncated"])
+def test_both_front_ends_accept_the_same_gzip(tmp_path, monkeypatch, front_end, tail):
+    """A member followed by bytes without gzip magic counts as the member
+    alone on both front ends; a real member cut short fails both, never
+    counting a prefix of the sample."""
+    import gzip
+
+    from bronko_tpu_torch.io import native as torch_native
+
+    recs_a = "".join(f"@a{i}\nACGTACGTACGTACGTACGTACGTTTGA\n+\n{'I' * 28}\n" for i in range(3000))
+    a = gzip.compress(recs_a.encode(), 6)
+    b = gzip.compress(recs_a.replace("@a", "@b").encode(), 6)
+    path = str(tmp_path / "x.fastq.gz")
+    with open(path, "wb") as fh:
+        fh.write(a + (b"\x00" * 37 if tail == "garbage" else b[: len(b) // 2]))
+    _set_env(monkeypatch, GATE_SHUT[0] if front_end == "pipelined" else GATE_OPEN[0])
+    assert torch_native.pipes(path) == (front_end == "pipelined")
+    if tail == "truncated":
+        with pytest.raises(ValueError):
+            torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4)
+        return
+    clean = str(tmp_path / "clean.fastq.gz")
+    with open(clean, "wb") as fh:
+        fh.write(a)
+    got = torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4)
+    want = torch_native.native_count_fastq(clean, 21, 1, 1_000_000, threads=4)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and got[2]["total_reads"] == 3000
+
+
+def test_pipelined_record_longer_than_a_block(tmp_path, monkeypatch):
+    """Reads longer than the pipelined reader's 1 MB block (a long-read
+    run): the block grows until it holds a whole record, and the count
+    equals the whole buffer's."""
+    import gzip
+
+    from bronko_tpu_torch.io import native as torch_native
+
+    rng = np.random.default_rng(29)
+    seqs = [np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes()
+            for n in (1_500_000, 300, 2_600_000, 80)]
+    text = b"".join(b"@long%d\n%s\n+\n%s\n" % (i, s, b"I" * len(s)) for i, s in enumerate(seqs))
+    path = str(tmp_path / "long.fastq.gz")
+    with open(path, "wb") as fh:
+        fh.write(gzip.compress(text, 1))
+    _set_env(monkeypatch, GATE_SHUT[0])
+    counters = {}
+    got = torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4, counters=counters)
+    assert counters == {"piped": 1}
+    want = torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4,
+                                           text=torch_native.native_read_inflate(path))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and got[2]["total_reads"] == 4

@@ -96,7 +96,10 @@ def test_count_splits_into_its_parts(synth, tmp_path, monkeypatch, path):
     for inflate-ahead text, the parse and the finalize, with little else;
     on the streamed path also every partition's dispatch, which the
     classic path never has. Nothing of the main thread's wait for a
-    count falls in a lone sample."""
+    count falls in a lone sample. The streamed path counts mate 1 while
+    its reader thread inflates it (counts["piped"] 1), so every inflate
+    ran beside the counting thread; the classic path's mates both come
+    from the inflate-ahead worker (piped 0)."""
     env = {"BRONKO_NO_STREAM": "1"} if path == "classic" else {"BRONKO_STREAM": "1"}
     (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
     s = r.seconds
@@ -107,10 +110,12 @@ def test_count_splits_into_its_parts(synth, tmp_path, monkeypatch, path):
         assert s["dispatch"] == 0.0 and s["h2d"] > 0
         # the inflate-ahead worker read both mates
         assert s["inflate_ahead"] == s["inflate"] > 0
+        assert r.counts["piped"] == 0
     else:
         assert s["dispatch"] > 0 and s["h2d"] == 0.0
-        # mate 1 inflates on the counting thread, mate 2 on the prefetch
-        assert 0 < s["inflate_ahead"] < s["inflate"]
+        # mate 1 inflates on the counter's reader thread, mate 2 on the prefetch
+        assert s["inflate_ahead"] == s["inflate"] > 0
+        assert r.counts["piped"] == 1
     assert s["count"] - parts <= 0.25 * s["count"] + 0.005
 
 
@@ -137,8 +142,11 @@ def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch
     """(g) SampleResult.counts: the kept k-mer rows mapped (every k-mer the
     counter kept, both mates), the device batches of --batch-size (on the
     streamed path each partition's own, at most one more a partition) and
-    the index's histogram words a row (the single word here). `serial` is
-    process_sample, whose map uploads the batches itself."""
+    the index's histogram words a row (the single word here), and the
+    mates counted while they inflated: both of `serial`, process_sample,
+    which counts each from its path and whose map uploads the batches
+    itself; mate 1 of the streamed path; none of the classic path, whose
+    mates come from the inflate-ahead worker."""
     from bronko_tpu_torch.io import native
 
     _, ref, pairs, index, dev = synth
@@ -152,7 +160,8 @@ def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch
         (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
     s = r.summary
     rows = r.counts["rows"]
-    assert set(r.counts) == {"rows", "batches", "words"}
+    assert set(r.counts) == {"rows", "batches", "words", "piped"}
+    assert r.counts["piped"] == {"serial": 2, "streamed": 1, "classic": 0}[path]
     assert rows == s.n_perfect + s.n_variant + s.n_unmapped > 4096
     least = -(-rows // 4096)
     if path != "streamed":

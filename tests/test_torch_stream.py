@@ -215,18 +215,27 @@ def test_finalize_part_refuses_a_partition_outside_its_count(data):
 
 def test_abandoned_stream_closes_its_prefetch(data, monkeypatch):
     """A consumer that stops after the first partition of a pair closes
-    the second mate's inflate-ahead buffer. The first mate's own buffer,
-    read and inflated before its count, is closed once it is counted."""
-    closed = []
+    the second mate's inflate-ahead buffer. The first mate, counted while
+    it inflates, has no buffer; where the counter would not pipe it (the
+    parallel inflater's gate open), its own buffer, read and inflated
+    before its count, is closed once it is counted."""
     inflate = native.native_read_inflate
-    monkeypatch.setattr(native, "native_read_inflate",
-                        lambda p, on_close=None: inflate(p, on_close=lambda: closed.append(p)))
-    gen = native.native_count_fastq_stream([data.r1, data.r2], 21, MIN_KMERS, KMER_COUNT_CAP,
-                                           threads=2)
-    next(gen)
-    assert closed == [data.r1]
-    gen.close()
-    assert closed == [data.r1, data.r2]
+    for k in ("BRONKO_PARALLEL_GZ", "BRONKO_PARALLEL_GZ_MIN", "BRONKO_WHOLEBUF_MAX"):
+        monkeypatch.delenv(k, raising=False)
+    for env, first in (({}, []), ({"BRONKO_PARALLEL_GZ": "1", "BRONKO_PARALLEL_GZ_MIN": "0"},
+                                  [data.r1])):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        assert native.pipes(data.r1) == (not first)
+        closed = []
+        monkeypatch.setattr(native, "native_read_inflate",
+                            lambda p, on_close=None: inflate(p, on_close=lambda: closed.append(p)))
+        gen = native.native_count_fastq_stream([data.r1, data.r2], 21, MIN_KMERS,
+                                               KMER_COUNT_CAP, threads=2)
+        next(gen)
+        assert closed == first
+        gen.close()
+        assert closed == first + [data.r2]
 
 
 # --- run_call ----------------------------------------------------------------------
