@@ -625,7 +625,8 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
-    mapped_counts = map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev, counted.piped)
+    mapped_counts = {**map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev),
+                     "piped": counted.piped}
     with span(map_range(mapped_counts)):
         seconds: dict[str, float] = {}
         device = dev.device if mapper is None else mapper.device
@@ -700,13 +701,13 @@ def hist_words(dev: DeviceIndex) -> int:
     return 0 if dev.hist_words is None else int(dev.hist_words.shape[1])
 
 
-def map_counts(rows: int, batches: int, dev: DeviceIndex, piped: int) -> dict[str, int]:
-    """A sample's SampleResult.counts; what it maps is also logged (`piped`
-    is logged with the count)."""
+def map_counts(rows: int, batches: int, dev: DeviceIndex) -> dict[str, int]:
+    """What a sample maps, for its SampleResult.counts, which are also
+    logged."""
     words = hist_words(dev)
     log.info("Mapping %d kept k-mer rows in %d device batch(es) against %d genomes, "
              "%d histogram word(s) a row", rows, batches, dev.num_genomes, words)
-    return {"rows": rows, "batches": batches, "words": words, "piped": piped}
+    return {"rows": rows, "batches": batches, "words": words}
 
 
 def map_range(counts: dict[str, int]) -> str:
@@ -1061,8 +1062,8 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         cstats.total_kmers, cstats.total_kmers * index.k, seconds["count"])
     log.info("Streamed %d partition(s), %d with a saved probe", len(parts),
              sum(saved is not None for *_, saved in parts))
-    counts = map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev,
-                        counters["piped"])
+    counts = {**map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev),
+              **counters}
     log_memory_usage("Finished counting kmers", device)
     return PendingStream(acc, parts, mcfg, n_kmers, cstats, count_span.t0, count_span.t1,
                          seconds, counts)

@@ -14,14 +14,13 @@ The counter has three front ends (native/kmer_count.cpp):
   then parses and counts on every thread. The engine's inflate-ahead
   worker overlaps one sample's single-threaded inflate with another's
   parse and count this way.
-- pipelined: a file given by its path alone that would inflate serially
-  (gzip, not BGZF, the parallel inflater's gate shut) or is past the
-  whole-buffer cap is counted from its path: the counter's reader thread
-  inflates it while the other threads parse and count what it has
-  inflated (`pipes`).
+- pipelined: a file given by its path alone that is gzip (but BGZF
+  where libdeflate loads) or past the whole-buffer cap is counted from
+  its path: the counter's reader thread inflates it while the other
+  threads parse and count what it has inflated (`pipes`).
 - whole buffer: any other file given by its path alone (uncompressed,
-  BGZF, or gzip the parallel inflater takes) is read and inflated here
-  first, then counted as text.
+  or BGZF that libdeflate inflates in parallel) is read and inflated
+  here first, then counted as text.
 
 Every count splits into the same spans (utils/spans.py), whose seconds
 add into the caller's `seconds` dict: `inflate` (read and inflate, on

@@ -630,24 +630,16 @@ void parallel_for(int n, int nt, F&& fn) {
 
 int64_t runs() { return g_runs.load(); }
 
-// BRONKO_PARALLEL_GZ_THREADS substitutes the detected hardware thread
-// count (gate AND worker pool): the >=8-thread auto gate ships untested
-// on narrow CI hosts otherwise — tests cap/raise it to drive both sides
-// of the gate on a 4-core box
-static unsigned hw_threads() {
-  return (unsigned)env_size("BRONKO_PARALLEL_GZ_THREADS",
-                            std::thread::hardware_concurrency());
-}
-
-bool engages(size_t n) {
-  int mode = env_mode();
-  if (mode == 0 || (mode < 0 && hw_threads() < 8)) return false;
-  return n >= env_size("BRONKO_PARALLEL_GZ_MIN", 4u << 20);
-}
-
 bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out) {
-  if (!engages(n)) return false;
-  unsigned hw = hw_threads();
+  int mode = env_mode();
+  // BRONKO_PARALLEL_GZ_THREADS substitutes the detected hardware thread
+  // count (gate AND worker pool): the >=8-thread auto gate ships untested
+  // on narrow CI hosts otherwise — tests cap/raise it to drive both sides
+  // of the gate on a 4-core box (VERDICT r4 item 7)
+  unsigned hw = (unsigned)env_size("BRONKO_PARALLEL_GZ_THREADS",
+                                   std::thread::hardware_concurrency());
+  if (mode == 0 || (mode < 0 && hw < 8)) return false;
+  if (n < env_size("BRONKO_PARALLEL_GZ_MIN", 4u << 20)) return false;
   size_t hdr = parse_gzip_header(in, n);
   if (!hdr) return false;
 

@@ -13,11 +13,6 @@ namespace bronko_gzp {
 
 bool parallel_inflate(const uint8_t* in, size_t n, std::vector<char>& out);
 
-// parallel_inflate's gate for n compressed bytes: BRONKO_PARALLEL_GZ not
-// off, enough hardware threads in auto mode, and n at least its minimum
-// size. A stream it lets through may still fall back to the serial path.
-bool engages(size_t n);
-
 // successful parallel inflates this process (tests assert the fast path
 // actually ran rather than silently falling back)
 int64_t runs();

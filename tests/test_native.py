@@ -390,6 +390,23 @@ GATE_OPEN = [{"BRONKO_PARALLEL_GZ": "1", "BRONKO_PARALLEL_GZ_MIN": "0"},
              {"BRONKO_PARALLEL_GZ_THREADS": "8", "BRONKO_PARALLEL_GZ_MIN": "0"}]
 
 
+def _libdeflate_loads() -> bool:
+    """Whether the names the counter dlopens load here: BGZF then
+    inflates in parallel on the whole buffer, else it pipes."""
+    import ctypes
+
+    for name in ("libdeflate.so.0", "libdeflate.so"):
+        try:
+            ctypes.CDLL(name)
+            return True
+        except OSError:
+            pass
+    return False
+
+
+LIBDEFLATE = _libdeflate_loads()
+
+
 @pytest.fixture(scope="module")
 def piped_text():
     """~11 MB of FASTQ (reads of 60-240 bp with N's, some CRLF records)
@@ -439,22 +456,26 @@ def _piped_file(tmp_path, piped_text, kind):
     *[("gzip", e, True) for e in GATE_SHUT],
     *[("multi-member", e, True) for e in GATE_SHUT],
     ("gzip", {"BRONKO_PARALLEL_GZ_THREADS": "8", "BRONKO_PARALLEL_GZ_MIN": str(1 << 30)}, True),
-    *[("gzip", e, False) for e in GATE_OPEN],
-    ("multi-member", GATE_OPEN[0], False),
+    *[("gzip", e, True) for e in GATE_OPEN],
+    ("multi-member", GATE_OPEN[0], True),
     *[("plain", e, False) for e in GATE_SHUT],
-    *[("bgzf", e, False) for e in GATE_SHUT],
+    *[("bgzf", e, not LIBDEFLATE) for e in GATE_SHUT],
     ("plain", {"BRONKO_WHOLEBUF_MAX": "0"}, True),
+    ("bgzf", GATE_OPEN[0], not LIBDEFLATE),
+    ("bgzf", {"BRONKO_WHOLEBUF_MAX": "0"}, True),
 ], ids=["gzip-off", "gzip-4threads", "multi-off", "multi-4threads", "gzip-under-min",
         "gzip-forced", "gzip-8threads", "multi-forced", "plain-off", "plain-4threads",
-        "bgzf-off", "bgzf-4threads", "plain-past-cap"])
+        "bgzf-off", "bgzf-4threads", "plain-past-cap", "bgzf-forced", "bgzf-past-cap"])
 def test_gate_picks_the_pipelined_front_end(tmp_path, monkeypatch, piped_text, kind, env, piped):
     """The port's counter counts a file from its path while it inflates
-    (the pipelined front end) when the whole buffer would inflate it
-    serially: gzip or multi-member gzip with the parallel inflater's gate
-    shut, and any file past the whole-buffer cap; uncompressed, BGZF and
-    gzip the parallel inflater takes keep the whole buffer. Either way the
-    k-mers, counts and stats equal those of the file's inflated text, and
-    only a piped file charges its reader's inflate, beside the parse."""
+    (the pipelined front end) unless the whole buffer's inflate is
+    parallel or absent: every gzip, single- or multi-member, whatever the
+    parallel inflater's gate says, BGZF where libdeflate is missing, and
+    any file past the whole-buffer cap pipe; uncompressed input, and BGZF
+    that libdeflate inflates in parallel, keep the whole buffer. Either
+    way the k-mers, counts and stats equal those of the file's inflated
+    text, and only a piped file charges its reader's inflate, beside the
+    parse."""
     from bronko_tpu_torch.io import native as torch_native
 
     _set_env(monkeypatch, env)
@@ -479,7 +500,8 @@ def test_gate_picks_the_pipelined_front_end(tmp_path, monkeypatch, piped_text, k
 def test_both_front_ends_accept_the_same_gzip(tmp_path, monkeypatch, front_end, tail):
     """A member followed by bytes without gzip magic counts as the member
     alone on both front ends; a real member cut short fails both, never
-    counting a prefix of the sample."""
+    counting a prefix of the sample. The whole buffer's inflate is the one
+    that reads a text for the count (`native_read_inflate`)."""
     import gzip
 
     from bronko_tpu_torch.io import native as torch_native
@@ -490,17 +512,28 @@ def test_both_front_ends_accept_the_same_gzip(tmp_path, monkeypatch, front_end, 
     path = str(tmp_path / "x.fastq.gz")
     with open(path, "wb") as fh:
         fh.write(a + (b"\x00" * 37 if tail == "garbage" else b[: len(b) // 2]))
-    _set_env(monkeypatch, GATE_SHUT[0] if front_end == "pipelined" else GATE_OPEN[0])
-    assert torch_native.pipes(path) == (front_end == "pipelined")
+    _set_env(monkeypatch, {})
+    assert torch_native.pipes(path)
+
+    def count(p):
+        text = None
+        if front_end == "whole-buffer":
+            text = torch_native.native_read_inflate(p)
+            assert text.handle is not None, text.size
+        return torch_native.native_count_fastq(p, 21, 1, 1_000_000, threads=4, text=text)
+
     if tail == "truncated":
-        with pytest.raises(ValueError):
-            torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4)
+        if front_end == "whole-buffer":
+            assert torch_native.native_read_inflate(path).size == -2
+        else:
+            with pytest.raises(ValueError):
+                count(path)
         return
     clean = str(tmp_path / "clean.fastq.gz")
     with open(clean, "wb") as fh:
         fh.write(a)
-    got = torch_native.native_count_fastq(path, 21, 1, 1_000_000, threads=4)
-    want = torch_native.native_count_fastq(clean, 21, 1, 1_000_000, threads=4)
+    got = count(path)
+    want = count(clean)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2] == want[2] and got[2]["total_reads"] == 3000

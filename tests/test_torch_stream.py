@@ -213,29 +213,33 @@ def test_finalize_part_refuses_a_partition_outside_its_count(data):
         lib.bronko_counter_destroy(h)
 
 
-def test_abandoned_stream_closes_its_prefetch(data, monkeypatch):
+def test_abandoned_stream_closes_its_prefetch(data, tmp_path, monkeypatch):
     """A consumer that stops after the first partition of a pair closes
-    the second mate's inflate-ahead buffer. The first mate, counted while
-    it inflates, has no buffer; where the counter would not pipe it (the
-    parallel inflater's gate open), its own buffer, read and inflated
-    before its count, is closed once it is counted."""
+    the second mate's inflate-ahead buffer. The first mate, gzip counted
+    while it inflates, has no buffer; where the counter would not pipe it
+    (uncompressed mates), its own buffer, read before its count, is
+    closed once it is counted."""
+    import gzip
+    import shutil
+
+    plain = []
+    for p in (data.r1, data.r2):
+        plain.append(str(tmp_path / os.path.basename(p)[:-3]))
+        with gzip.open(p, "rb") as src, open(plain[-1], "wb") as dst:
+            shutil.copyfileobj(src, dst)
     inflate = native.native_read_inflate
-    for k in ("BRONKO_PARALLEL_GZ", "BRONKO_PARALLEL_GZ_MIN", "BRONKO_WHOLEBUF_MAX"):
-        monkeypatch.delenv(k, raising=False)
-    for env, first in (({}, []), ({"BRONKO_PARALLEL_GZ": "1", "BRONKO_PARALLEL_GZ_MIN": "0"},
-                                  [data.r1])):
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
-        assert native.pipes(data.r1) == (not first)
+    monkeypatch.delenv("BRONKO_WHOLEBUF_MAX", raising=False)
+    for r1, r2, first in ((data.r1, data.r2, []), (*plain, [plain[0]])):
+        assert native.pipes(r1) == (not first)
         closed = []
         monkeypatch.setattr(native, "native_read_inflate",
                             lambda p, on_close=None: inflate(p, on_close=lambda: closed.append(p)))
-        gen = native.native_count_fastq_stream([data.r1, data.r2], 21, MIN_KMERS,
-                                               KMER_COUNT_CAP, threads=2)
+        gen = native.native_count_fastq_stream([r1, r2], 21, MIN_KMERS, KMER_COUNT_CAP,
+                                               threads=2)
         next(gen)
         assert closed == first
         gen.close()
-        assert closed == first + [data.r2]
+        assert closed == first + [r2]
 
 
 # --- run_call ----------------------------------------------------------------------
