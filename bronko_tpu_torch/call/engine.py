@@ -25,18 +25,17 @@ rows, its device batches and the index's histogram words a row; and how
 it was counted: `piped`, its mates the native counter counted while they
 inflated (io/native.py), 0, 1 or 2.
 
-With the saved probe on one device, the main thread only enqueues steps
-3-5, as JAX's engine does (engine.py:753-980). On the single histogram
-word a PendingFused holds pass 1, the genome pick on the device and
-pass 2, all enqueued at once (ops/map.map_fused), and its resolve() on
-the caller thread checks the device pick against the host's; the path
-is ('hist', 'fused'). On the multi-word histogram a PendingMap holds
-pass 1 and the copy of its packed tallies and walk lengths, and its
-resolve() waits for that copy alone, picks the genome and enqueues
-pass 2; the path is ('words', 'saved'). Every copy goes to page-locked
-memory behind an event, so neither thread waits for the other's work.
-pass1, pass2 and d2h stay wall seconds (each stage's enqueue plus the
-resolve's wait for it).
+On one device a PendingMap holds steps 3-5 of a sample: pass 1 enqueued
+over its parts (one for a classic sample, one a partition for a
+streamed one) and the copy of the packed tallies and walk lengths, with
+no host sync; its resolve() waits for that copy alone, picks the genome,
+enqueues pass 2 and waits for the pileup's copy. Every copy goes to
+page-locked memory behind an event, so resolve() may run on the caller
+thread while the main thread enqueues the next sample: it does for a
+classic sample with a saved probe, path (mode, 'saved'); a classic
+sample without one is resolved at once on the main thread, path (mode,
+'subindex'). pass1, pass2 and d2h stay wall seconds (each stage's
+enqueue plus the resolve's wait for it).
 
 `run_call` pipelines a cohort as the JAX engine's `_run_call_inner` does
 (engine.py:1449-1717): count workers count and upload the coming samples
@@ -55,15 +54,15 @@ cohort's first, may count into pass 1 instead. The native counter then
 finalizes one key-range partition at a time (io/native.py:
 native_count_fastq_stream), and each partition is uploaded from
 page-locked memory and its pass 1 enqueued while the host sorts the
-next; one host copy brings the tallies and every partition's walk
-lengths back, and pass 2 walks the saved probe or, past PROBE_BYTES_CAP,
-the genome's sub-index. `_can_stream` is JAX's gate: BRONKO_STREAM,
-BRONKO_NO_STREAM and BRONKO_STREAM_FIRST force it; else the port's own
-calibration file (~/.cache/bronko_torch/stream_calib.json, an entry per
-platform) or, without one, a device round trip under 4 ms decides. The
-sample's path is (mode, 'streamed'); its `count` stage runs until the
-last partition's pass 1 is enqueued, `h2d` is 0 and `pass1` is the tail
-up to the tallies on the host.
+next; each partition is a part of the sample's PendingMap, resolved on
+the main thread. `_can_stream` streams every sample that can: not under
+a mesh, --keep-kmer-info or the device counter, on an index with a
+histogram and postings grouped by genome, with the native library
+loaded, unless BRONKO_NO_STREAM=1 or BRONKO_STREAM=0; BRONKO_STREAM_FIRST
+sets a cohort's first sample. The sample's path is (mode, 'streamed');
+its `count` stage runs until pass 1's copy is enqueued after the last
+partition, `h2d` is 0 and `pass1` is the wait for the tallies on the
+host.
 
 Every stage is timed by a span (utils/spans.py): its wall seconds add
 into the sample's SampleResult.seconds, and under torch.profiler it is a
@@ -94,7 +93,6 @@ gather to every rank in input order for rank 0's overview.
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import pickle
@@ -111,7 +109,7 @@ from bronko_tpu_torch.call.outputs import (
     SampleSummary, write_alignments, write_overview, write_pileup, write_vcf,
 )
 from bronko_tpu_torch.call.variants import CallStats, VCFRecord, call_variants_for_seq
-from bronko_tpu_torch.config import CallConfig, platform
+from bronko_tpu_torch.config import CallConfig
 from bronko_tpu_torch.consts import KMER_COUNT_CAP
 from bronko_tpu_torch.index.layout import DeviceIndex, load_subindex
 from bronko_tpu_torch.index.model import BronkoIndex
@@ -121,8 +119,8 @@ from bronko_tpu_torch.io.naming import clean_sample_id
 from bronko_tpu_torch.ops.codec import from_u64, kmer_to_string
 from bronko_tpu_torch.ops.count import CountStats, KmerCounter
 from bronko_tpu_torch.ops.map import (
-    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, pass2_fused,
-    pileup_from_saved, pileup_from_subindex, tally, tally_save,
+    PLANE_CNT_FWD, PLANE_CNT_REV, PLANE_DEPTH_FWD, PLANE_DEPTH_REV, pileup_from_saved,
+    pileup_from_subindex, tally, tally_save,
 )
 from bronko_tpu_torch.parallel import distributed
 from bronko_tpu_torch.parallel.distributed import allgather_bytes, is_primary
@@ -132,7 +130,7 @@ from bronko_tpu_torch.parallel.pipeline import (
     upload_chunk, upload_shard,
 )
 from bronko_tpu_torch.utils.memory import log_memory_usage
-from bronko_tpu_torch.utils.spans import add_seconds, sample_span, span
+from bronko_tpu_torch.utils.spans import sample_span, span
 
 log = logging.getLogger("bronko")
 
@@ -163,8 +161,8 @@ class SampleResult:
     counts: dict[str, int]       # rows (kept k-mers mapped), batches (device batches),
     #                              words (histogram words a row; 0 without one),
     #                              piped (mates counted while they inflated)
-    path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex', 'fused'
-    #                              or 'streamed')
+    path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex' or
+    #                              'streamed')
 
 
 def native_lib():
@@ -446,32 +444,20 @@ class Mapped:
     counts: dict[str, int]        # SampleResult.counts
 
 
-class _Stages:
-    """A pending sample's pass1 / pass2 / d2h: `host`, wall seconds by
-    stage, as the classic path keeps them: each stage's enqueue on the
-    main thread plus the caller thread's wait for its result in
-    resolve(), so they add up, with the other stages, to the sample's own
-    time. The time the pending sample waits for the caller thread lies in
-    no stage, as the classic path's wait between the threads does not.
-    On a card, an event recorded on the shared current stream as each
-    stage is enqueued lets the caller thread wait for that stage alone."""
+def _event(device: torch.device):
+    """On a card, an event recorded on the current stream, whose
+    synchronize() waits for the work enqueued before it alone; else None."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.host = {"pass1": 0.0, "pass2": 0.0, "d2h": 0.0}
-        self.events: dict = {}
 
-    def record(self, name: str) -> None:
-        """On a card, record event `name` on the current stream."""
-        if self.device.type == "cuda":
-            self.events[name] = torch.cuda.Event()
-            self.events[name].record(torch.cuda.current_stream(self.device))
-
-    def wait(self, name: str) -> None:
-        """Block the calling thread until the work before event `name` is
-        done (the event alone, not work enqueued after it)."""
-        if self.device.type == "cuda":
-            self.events[name].synchronize()
+def _wait(event) -> None:
+    """Block the calling thread until `event` (an _event) has passed."""
+    if event is not None:
+        event.synchronize()
 
 
 def _copy_to_host(t: torch.Tensor) -> torch.Tensor:
@@ -485,143 +471,122 @@ def _copy_to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def _pass1(batches, rows: int, dev: DeviceIndex, mcfg, probe_bytes: int):
+    """Pass 1 of one part of a sample: `rows` k-mers in `batches`. It saves
+    its probe (tally_save) while the sample's probe bytes so far, this
+    part's included, stay within PROBE_BYTES_CAP, on an index with a
+    histogram and postings grouped by genome (JAX engine.py:790-800,
+    :1137-1208; the port pads no batch); otherwise it tallies without one
+    (tally, in the index's own mode). Enqueued with no host sync. Returns
+    (tallies (G, 3) int32, the part (batches, lanes (nb, G) int64, saved
+    | None), the probe bytes so far)."""
+    per_q = probe_bytes_per_query(dev)
+    if per_q is not None and dev.fid_grouped:
+        probe_bytes += rows * len(mcfg.positions) * per_q
+        if probe_bytes <= PROBE_BYTES_CAP:
+            tallies, lanes, saved = tally_save(batches, dev, mcfg)
+            return tallies, (batches, lanes, saved), probe_bytes
+    tallies, lanes = tally(batches, dev, mcfg, dev.tally_mode())
+    return tallies, (batches, lanes, None), probe_bytes
+
+
+def _copy_pass1(tallies: torch.Tensor, parts: list):
+    """Enqueue the copy of the tallies and every part's walk lengths, packed
+    in one int64 vector as JAX's `meta` (engine.py:874-881). Returns
+    (the vector on the device, its host copy, the copy's event)."""
+    meta = torch.cat([tallies.to(torch.int64).reshape(-1)]
+                     + [lanes.reshape(-1) for _, lanes, _ in parts])
+    return meta, _copy_to_host(meta), _event(meta.device)
+
+
 @dataclass
-class _Pending:
-    """A sample's device work enqueued on the main thread with the copy of
-    its tallies and walk lengths (+ the device pick) packed in one int64
-    vector, as JAX's `meta` (engine.py:874-881); resolved on the caller
-    thread."""
-    batches: list
-    saved: list
-    meta: torch.Tensor        # (3G + nb*G [+ 1],) int64 on the device; held until copied
+class PendingMap:
+    """One sample's device part on one device, enqueued with no host sync
+    (JAX engine.py:884-913, :1077-1134): pass 1 over each part, and the
+    copy of the packed tallies and walk lengths (_copy_pass1). resolve()
+    waits for that copy alone, picks the genome on the host, enqueues
+    pass 2 and the pileup's copy, and waits for each behind an event, so
+    it may run on a thread other than the one that enqueued."""
+    parts: list               # [(batches, lanes (nb, G) int64 on the device, saved | None)]
+    meta: torch.Tensor        # (3G + nb*G,) int64 on the device; held until copied
     meta_host: torch.Tensor   # its host copy
-    stages: _Stages
+    ready: torch.cuda.Event | None  # the copy's event (None off a card)
     mcfg: object
     n_kmers: int
     cstats: CountStats
-    t_start: float
-    seconds: dict             # h2d, when _map_one uploaded
-    counts: dict              # SampleResult.counts
+    t_start: float            # the log's "Tallied" counts from here
+    path: tuple[str, str]     # SampleResult.path
+    # the sample's seconds so far; resolve() adds its wait into pass1, and
+    # pass2 and d2h. The time the sample waits for its resolve() lies in
+    # no stage.
+    seconds: dict[str, float]
+    counts: dict[str, int]    # SampleResult.counts
 
-    def _select(self, index: BronkoIndex, dev: DeviceIndex, tail: int, note: str = ""):
-        """The host's side of pass 1 once its copy is in: the tallies and
-        walk lengths (meta's last `tail` words left aside), the log line
-        and the host pick, charged to pass1."""
-        with span("pass1", self.stages.host):
-            G = dev.num_genomes
+    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
+        """The tallies and walk lengths, the genome selection
+        (pick_best_genome), then pass 2 over every part; the pileup on the
+        host."""
+        G = dev.num_genomes
+        with span("pass1", self.seconds):
+            _wait(self.ready)
             meta = self.meta_host.numpy()
             tallies = meta[:3 * G].reshape(G, 3).copy()
-            walks = meta[3 * G:meta.shape[0] - tail].reshape(-1, G)
+            walks = np.split(meta[3 * G:].reshape(-1, G),
+                             np.cumsum([len(b) for b, _, _ in self.parts])[:-1])
             log.info("Tallied %d kmers in %.2fs%s", self.n_kmers,
-                     time.perf_counter() - self.t_start, note)
+                     time.perf_counter() - self.t_start,
+                     " (streamed)" if self.path[1] == "streamed" else "")
             best, triple = _select_and_log(tallies, index, dev, self.cstats)
-        return tallies, walks[:, best].tolist(), best, triple
-
-    def _pass2(self, dev: DeviceIndex, walk: list, best: int) -> torch.Tensor:
-        return pileup_from_saved(self.batches, self.saved, walk, dev.pass2_postings(), best,
-                                 self.mcfg, dev.g_total_len, int(dev.file_bases[best]))
-
-    def _mapped(self, best, triple, tallies, pileup, path) -> Mapped:
-        return Mapped(best, triple, tallies, pileup, path, {**self.seconds, **self.stages.host},
-                      self.counts)
-
-
-@dataclass
-class PendingMap(_Pending):
-    """Pass 1 with the saved probe on the multi-word histogram (JAX
-    engine.py:884-913). resolve() waits for the copy of pass 1 alone,
-    picks the genome on the host, enqueues pass 2 and the pileup's copy,
-    and waits for each. Events: pass1 (the copy enqueued), then pass2,
-    d2h."""
-
-    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
-        with span("pass1", self.stages.host):
-            self.stages.wait("pass1")
-        tallies, walk, best, triple = self._select(index, dev, 0)
-        with span("pass2", self.stages.host) as sp:
-            pileup_t = self._pass2(dev, walk, best)
-            self.stages.record("pass2")
-            self.stages.wait("pass2")
-        with span("d2h", self.stages.host):
+        with span("pass2", self.seconds) as sp:
+            pileup_t = self._pass2(dev, walks, best)
+            _wait(_event(dev.device))
             log.info("Scattered pileup in %.2fs", sp.elapsed())
-            pileup = _copy_to_host(pileup_t)
-            self.stages.record("d2h")
-            self.stages.wait("d2h")
-        return self._mapped(best, triple, tallies, pileup.numpy().copy(),
-                            (dev.tally_mode(), "saved"))
-
-
-@dataclass
-class PendingFused(_Pending):
-    """Both passes and the genome pick on the device, enqueued at once
-    (ops/map.map_fused's pieces; JAX engine.py:809-839 and :924-980),
-    then the copies of meta (with the device pick last) and of the
-    pileup. resolve() waits for the copies, picks the genome on the host
-    and, should the two picks differ (they cannot: the score is the same
-    f64 division), logs JAX's line and walks pass 2 again for the host's
-    pick, its host wall charged to pass2. Events: pass1, pass2, d2h (the
-    copies enqueued)."""
-    pileup: torch.Tensor = None       # (4, Tg+1, 4) int32 of the device pick; held until copied
-    pileup_host: torch.Tensor = None
-
-    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
-        for stage in ("pass1", "pass2", "d2h"):
-            with span(stage, self.stages.host):
-                self.stages.wait(stage)
-        tallies, walk, best, triple = self._select(index, dev, 1, " (fused)")
-        if int(self.meta_host[-1]) == best:
-            pileup = self.pileup_host.numpy().copy()
-        else:
-            log.info("fused pass-2 budget overflowed or selection guard tripped; re-running "
-                     "pass 2 with the exact budget")
-            with span("pass2", self.stages.host) as sp:
-                host = _copy_to_host(self._pass2(dev, walk, best))
-                self.stages.record("guard")
-                self.stages.wait("guard")
+        with span("d2h", self.seconds):
+            host = _copy_to_host(pileup_t)
+            _wait(_event(dev.device))
             pileup = host.numpy().copy()
-            log.info("Scattered pileup in %.2fs", sp.elapsed())
-        return self._mapped(best, triple, tallies, pileup, ("hist", "fused"))
+        return Mapped(best, triple, tallies, pileup, self.path, self.seconds, self.counts)
 
-
-def _enqueue_saved(batches, dev: DeviceIndex, mcfg, n_kmers: int, cstats: CountStats,
-                   t_start: float, seconds: dict, counts: dict) -> PendingMap | PendingFused:
-    """The single-device path with the saved probe, enqueued with no host
-    sync (JAX engine.py:801-881): every stage fused on the single
-    histogram word (ops/map.map_fused's tally_save and pass2_fused), pass
-    1 alone on the multi-word one."""
-    stages = _Stages(dev.device)
-    with span("pass1", stages.host):
-        tallies, lanes, saved = tally_save(batches, dev, mcfg)
-        if dev.hist is None:
-            meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1)])
-            meta_host = _copy_to_host(meta)
-    stages.record("pass1")
-    if dev.hist is None:
-        return PendingMap(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
-                          t_start, seconds, counts)
-    with span("pass2", stages.host):
-        best, pileup = pass2_fused(batches, saved, tallies, dev, mcfg, dev.glen2_t(),
-                                   dev.file_bases_t())
-    stages.record("pass2")
-    with span("d2h", stages.host):
-        meta = torch.cat([tallies.to(torch.int64).reshape(-1), lanes.reshape(-1), best])
-        meta_host, pileup_host = _copy_to_host(meta), _copy_to_host(pileup)
-    stages.record("d2h")
-    return PendingFused(batches, saved, meta, meta_host, stages, mcfg, n_kmers, cstats,
-                        t_start, seconds, counts, pileup, pileup_host)
+    def _pass2(self, dev: DeviceIndex, walks: list, best: int) -> torch.Tensor:
+        """Genome `best`'s pileup on the device: the saved parts from their
+        probe (pileup_from_saved), the others through the genome's
+        sub-index (pileup_from_subindex) with the exact walk lengths of
+        their own pass 1; two pileups merge plane by plane, depth max and
+        counts add."""
+        groups = {True: ([], [], []), False: ([], [], [])}  # saved: batches, probe, walk
+        for (batches, _, saved), walk in zip(self.parts, walks):
+            b, probe, w = groups[saved is not None]
+            b += batches
+            probe += saved or []
+            w += walk[:, best].tolist()
+        pileups = []
+        if groups[True][0]:
+            b, probe, w = groups[True]
+            pileups.append(pileup_from_saved(b, probe, w, dev.pass2_postings(), best,
+                                             self.mcfg, dev.g_total_len,
+                                             int(dev.file_bases[best])))
+        if groups[False][0]:
+            b, _, w = groups[False]
+            pileups.append(pileup_from_subindex(b, dev.subindex(best), w, self.mcfg,
+                                                dev.g_total_len))
+        if len(pileups) == 2:
+            a, b = pileups
+            pileups = [torch.cat([torch.maximum(a[:2], b[:2]), a[2:] + b[2:]])]
+        return pileups[0] if pileups else torch.zeros(
+            (4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
 
 
 def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
              cfg: CallConfig, mapper: ShardedMapper | None = None):
-    """The device part of one sample. On one device with the saved probe
-    (saves_probe) only the enqueue happens here, as in JAX's engine
-    (engine.py:753-881): it returns a PendingFused (the single histogram
-    word) or a PendingMap (the multi-word one), which the caller thread
-    resolves. Otherwise (the sub-index pass 2, or a mapper: --mesh, whose
-    collectives run on this thread) it returns the Mapped sample: pass 1,
-    selection, pass 2 and d2h, the device synced at every stage boundary.
-    h2d is done here unless a count worker uploaded the batches. All of
-    it runs in the range `map`, named with the sample's counts."""
+    """The device part of one sample. On one device it enqueues pass 1 and
+    its copy as a one-part PendingMap: one that saved its probe is
+    returned for the caller thread to resolve, as in JAX's engine
+    (engine.py:753-881); one that did not is resolved here. Under a
+    mapper (--mesh, whose collectives run on this thread) it returns the
+    Mapped sample: pass 1, selection, pass 2 and d2h, the device synced at
+    every stage boundary. h2d is done here unless a count worker uploaded
+    the batches. All of it runs in the range `map`, named with the
+    sample's counts."""
     mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
@@ -638,18 +603,22 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
                 batches = (to_batches(kmers, counts, cfg.batch_size, device) if mapper is None
                            else mapper.place_batches(kmers, counts, cfg.batch_size))
                 _sync(device)
-        if mapper is None and saves_probe(dev, n_kmers, len(mcfg.positions)):
-            return _enqueue_saved(batches, dev, mcfg, n_kmers, counted.cstats, t_start, seconds,
-                                  mapped_counts)
+        if mapper is None:
+            with span("pass1", seconds):
+                tallies, part, _ = _pass1(batches, n_kmers, dev, mcfg, 0)
+                saved = part[2] is not None
+                pending = PendingMap([part], *_copy_pass1(tallies, [part]), mcfg, n_kmers,
+                                     counted.cstats, t_start,
+                                     (dev.tally_mode(), "saved" if saved else "subindex"),
+                                     seconds, mapped_counts)
+            return pending if saved else pending.resolve(index, dev)
 
         with span("pass1", seconds) as sp:
-            p1 = (run_pass1(batches, dev, mcfg) if mapper is None
-                  else mapper.run_tallies(batches, mcfg))
+            p1 = mapper.run_tallies(batches, mcfg)
             log.info("Tallied %d kmers in %.2fs", n_kmers, sp.elapsed())
             best, triple = _select_and_log(p1.tallies, index, dev, counted.cstats)
         with span("pass2", seconds) as sp:
-            pileup_t = (run_pass2(batches, dev, mcfg, p1, best) if mapper is None
-                        else mapper.run_pileup(batches, mcfg, best, dev.g_total_len))
+            pileup_t = mapper.run_pileup(batches, mcfg, best, dev.g_total_len)
             _sync(device)
             log.info("Scattered pileup in %.2fs", sp.elapsed())
         with span("d2h", seconds):
@@ -666,7 +635,7 @@ def _call_one(display: str, index: BronkoIndex, dev: DeviceIndex, cfg: CallConfi
     position, for its range in a trace."""
     own: dict[str, float] = {}
     with sample_span(pos):
-        if isinstance(mapped, (PendingMap, PendingFused)):
+        if isinstance(mapped, PendingMap):
             with span("resolve"):
                 mapped = mapped.resolve(index, dev)
         with span("call", own):
@@ -726,41 +695,13 @@ def probe_bytes_per_query(dev: DeviceIndex) -> int | None:
     return None
 
 
-def saves_probe(dev: DeviceIndex, n_kmers: int, J: int) -> bool:
-    """Whether pass 1 saves its probe for pass 2 (JAX engine.py:790-800):
-    a histogram exists, postings are grouped by genome within a bucket,
-    and the probe of the sample's n_kmers x J queries (the port pads no
-    batch) stays under PROBE_BYTES_CAP."""
-    per_q = probe_bytes_per_query(dev)
-    return per_q is not None and dev.fid_grouped and n_kmers * J * per_q < PROBE_BYTES_CAP
-
-
 @dataclass
 class Pass1:
+    """A mesh's pass 1 (ShardedMapper.run_tallies), on the host."""
     tallies: np.ndarray      # (G, 3) int64 perfect / variant / unique
     lanes: np.ndarray        # (nb, G) int64 pass-2 walk length by batch and genome
     #                          (over a mesh (1, G): the whole sample's)
     path: tuple[str, str]    # (tally mode, 'subindex', or 'saved' by the routed mesh)
-
-
-def run_pass1(batches, dev: DeviceIndex, mcfg) -> Pass1:
-    """Pass 1 over the sample's device batches without a saved probe (no
-    histogram, postings not grouped by genome, or a probe past
-    PROBE_BYTES_CAP; JAX engine.py:780-870); tallies and walk lengths
-    come back in one copy."""
-    G = dev.num_genomes
-    mode = dev.tally_mode()
-    tallies_t, lanes_t = tally(batches, dev, mcfg, mode)
-    host = torch.cat([tallies_t.to(torch.int64).reshape(-1),
-                      lanes_t.reshape(-1)]).cpu().numpy()
-    return Pass1(host[:3 * G].reshape(G, 3), host[3 * G:].reshape(-1, G), (mode, "subindex"))
-
-
-def run_pass2(batches, dev: DeviceIndex, mcfg, p1: Pass1, best: int) -> torch.Tensor:
-    """Pass 2 for genome `best` through its sub-index: the (4, Tg+1, 4)
-    int32 pileup on the device."""
-    return pileup_from_subindex(batches, dev.subindex(best), p1.lanes[:, best].tolist(), mcfg,
-                                dev.g_total_len)
 
 
 # --- the streamed single-sample path (JAX engine.py:1059-1374) ---------------
@@ -771,112 +712,17 @@ def _env_flag(name: str) -> bool:
     return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
-def _platform_of(device: torch.device) -> str:
-    """config.platform()'s name for `device`: 'gpu' for a CUDA device, else 'cpu'."""
-    return "gpu" if device.type == "cuda" else "cpu"
-
-
-def _platform_device() -> torch.device:
-    """The device BRONKO_PLATFORM names (the CLI's, without a rank)."""
-    return torch.device("cpu") if platform() == "cpu" else torch.device("cuda")
-
-
-# one round trip to a device, by device type, measured once a process
-_DISPATCH_LAT: dict[str, float] = {}
-
-
-def _dispatch_latency_s(device: torch.device) -> float:
-    """One round trip to `device`: a tiny op, then a synchronize on a CUDA
-    device; the second of two is timed (the first pays lazy set-up).
-    Measured once a process for each device type. A probe that raises
-    reads 1.0 s: a failed probe must not turn streaming on (JAX
-    engine.py:1237-1258)."""
-    if device.type not in _DISPATCH_LAT:
-        try:
-            x = torch.zeros(8, dtype=torch.int32, device=device)
-            for _ in range(2):
-                t0 = time.perf_counter()
-                x = x + 1
-                _sync(device)
-                took = time.perf_counter() - t0
-            _DISPATCH_LAT[device.type] = took
-        except Exception:  # noqa: BLE001 — no such device, a CUDA error
-            _DISPATCH_LAT[device.type] = 1.0
-    return _DISPATCH_LAT[device.type]
-
-
-# the port's own calibration file; JAX's (~/.cache/bronko_jax) holds a TPU's
-_STREAM_CALIB_PATH = os.path.join(
-    os.path.expanduser("~"), ".cache", "bronko_torch", "stream_calib.json")
-
-
-def _load_stream_calib(device: torch.device | None = None) -> dict | None:
-    """The calibration entry of `device`'s platform (default: BRONKO_PLATFORM's):
-    measured classic and streamed single-sample wall seconds and the round
-    trip at the time; None when the file is absent, corrupt or has no valid
-    entry (JAX engine.py:1264-1282)."""
-    try:
-        with open(_STREAM_CALIB_PATH) as fh:
-            e = json.load(fh).get(_platform_of(device or _platform_device()))
-        if (isinstance(e, dict) and float(e["classic_s"]) > 0
-                and float(e["streamed_s"]) > 0 and float(e["dispatch_s"]) >= 0):
-            return e
-    except Exception:  # noqa: BLE001 — absent or corrupt: no calibration
-        pass
-    return None
-
-
-def save_stream_calibration(classic_s: float, streamed_s: float,
-                            device: torch.device | None = None) -> dict:
-    """Record a measured classic-vs-streamed single-sample pair for
-    `device`'s platform (default: BRONKO_PLATFORM's), with the round trip
-    now, merged into the file so another platform's entry stays. The gate
-    trusts the entry only while the live round trip stays in its class
-    (JAX engine.py:1285-1321)."""
-    device = device or _platform_device()
-    entry = {
-        "classic_s": round(float(classic_s), 4),
-        "streamed_s": round(float(streamed_s), 4),
-        "dispatch_s": round(_dispatch_latency_s(device), 5),
-        "ts": time.time(),
-    }
-    try:
-        os.makedirs(os.path.dirname(_STREAM_CALIB_PATH), exist_ok=True)
-        try:
-            with open(_STREAM_CALIB_PATH) as fh:
-                d = json.load(fh)
-            if not isinstance(d, dict):
-                d = {}
-        except Exception:  # noqa: BLE001
-            d = {}
-        d[_platform_of(device)] = entry
-        tmp = _STREAM_CALIB_PATH + ".tmp"
-        with open(tmp, "w") as fh:
-            json.dump(d, fh)
-        os.replace(tmp, _STREAM_CALIB_PATH)
-    except Exception as e:  # noqa: BLE001 — a read-only home directory
-        log.warning("could not persist stream calibration: %s", e)
-    return entry
-
-
-def _can_stream(cfg: CallConfig, dev: DeviceIndex, mapper, explicit: bool = False,
-                device: torch.device | None = None) -> bool:
-    """Whether a sample takes the streamed path, in JAX's order
-    (engine.py:1324-1374): a mesh, --keep-kmer-info and the device counter
-    keep it classic; so do BRONKO_NO_STREAM and BRONKO_STREAM=0; so do an
-    index without a histogram or with postings not grouped by genome, and
-    a missing native library. Then an explicit opt-in (BRONKO_STREAM=1,
-    or `explicit`: BRONKO_STREAM_FIRST=1's) streams; else a calibration
-    whose round trip is in the live one's class decides (both under 4 ms,
-    or within 2.5x of each other); else the live round trip does (under
-    4 ms streams). `device` (default dev.device) is probed. The decision
-    and its source are logged."""
+def _can_stream(cfg: CallConfig, dev: DeviceIndex, mapper) -> bool:
+    """Whether a sample takes the streamed path: it does unless something
+    keeps it classic, in JAX's order (engine.py:1324-1374): a mesh,
+    --keep-kmer-info or the device counter; BRONKO_NO_STREAM or
+    BRONKO_STREAM=0; an index without a histogram or with postings not
+    grouped by genome; a native library that did not build or load."""
     if mapper is not None or cfg.keep_kmer_counts or cfg.counter == "device":
         return False
     if _env_flag("BRONKO_NO_STREAM"):
         return False
-    stream_env = os.environ.get("BRONKO_STREAM", "").strip().lower()
-    if stream_env in ("0", "false", "no", "off"):
+    if os.environ.get("BRONKO_STREAM", "").strip().lower() in ("0", "false", "no", "off"):
         return False
     if (dev.hist is None and dev.hist_words is None) or not dev.fid_grouped:
         return False
@@ -884,42 +730,19 @@ def _can_stream(cfg: CallConfig, dev: DeviceIndex, mapper, explicit: bool = Fals
         native_lib()
     except Exception:  # noqa: BLE001 — the library did not build or load
         return False
-    if explicit or stream_env in ("1", "true", "yes", "on"):
-        return True
-    device = dev.device if device is None else device
-    lat = _dispatch_latency_s(device)
-    calib = _load_stream_calib(device)
-    if calib is not None:
-        d0 = float(calib["dispatch_s"])
-        same_epoch = ((d0 < 0.004 and lat < 0.004)
-                      or (d0 > 0 and lat > 0 and 0.4 <= d0 / lat <= 2.5))
-        if same_epoch:
-            win = float(calib["streamed_s"]) < float(calib["classic_s"])
-            log.info(
-                "stream gate: calibrated -> %s (classic %.3fs vs streamed "
-                "%.3fs; dispatch now %.1f ms, calibrated at %.1f ms)",
-                "streamed" if win else "classic", calib["classic_s"],
-                calib["streamed_s"], lat * 1e3, d0 * 1e3)
-            return win
-        log.info("stream gate: calibration stale (dispatch %.1f ms vs "
-                 "calibrated %.1f ms); falling back to latency proxy",
-                 lat * 1e3, d0 * 1e3)
-    decision = lat < 0.004
-    log.info("stream gate: latency proxy -> %s (dispatch %.1f ms)",
-             "streamed" if decision else "classic", lat * 1e3)
-    return decision
+    return True
 
 
 def _streams_first(cfg: CallConfig, dev: DeviceIndex, mapper, n_jobs: int) -> bool:
     """Whether the first of `n_jobs` samples streams (JAX
     engine.py:1512-1575): a lone sample when the gate says so; a cohort's
-    first when BRONKO_STREAM_FIRST=1 (an explicit opt-in) or, with the
-    variable unset, when the gate says so; BRONKO_STREAM_FIRST=0 turns
-    it off."""
+    first when BRONKO_STREAM_FIRST=1 and the gate lets it, not when
+    BRONKO_STREAM_FIRST=0, and with the variable unset when the gate says
+    so."""
     if n_jobs < 1:
         return False
     if n_jobs > 1 and os.environ.get("BRONKO_STREAM_FIRST", "").strip():
-        return _env_flag("BRONKO_STREAM_FIRST") and _can_stream(cfg, dev, mapper, explicit=True)
+        return _env_flag("BRONKO_STREAM_FIRST") and _can_stream(cfg, dev, mapper)
     return _can_stream(cfg, dev, mapper)
 
 
@@ -939,101 +762,26 @@ def _upload_async(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
     return list(zip(km.split(batch_size), ct.split(batch_size)))
 
 
-@dataclass
-class PendingStream:
-    """A streamed sample whose pass 1 is enqueued for every partition:
-    the device's tallies, and each partition's batches, walk lengths and
-    saved probe (None past PROBE_BYTES_CAP)."""
-    tallies: torch.Tensor      # (G, 3) int32, every partition's, on the device
-    parts: list                # [(batches, lanes (nb, G) int64 on the device, saved | None)]
-    mcfg: object
-    n_kmers: int
-    cstats: CountStats
-    t_start: float             # the count began
-    t_enqueued: float          # the last partition's pass 1 was enqueued
-    # the stages before resolve(): the count and its parts, with every
-    # partition's upload and pass-1 dispatch inside it (`dispatch`), so h2d is 0
-    seconds: dict[str, float]
-    counts: dict[str, int]     # SampleResult.counts, every partition's batches
-
-    def resolve(self, index: BronkoIndex, dev: DeviceIndex) -> Mapped:
-        """Tallies and every partition's walk lengths in one host copy, the
-        genome selection, then pass 2: saved partitions from their probe
-        (pileup_from_saved), the others through the genome's sub-index
-        (pileup_from_subindex) with the exact walk lengths of their own
-        pass 1. Two pileups merge plane by plane: depth max, counts add
-        (JAX engine.py:1077-1134). pass1 runs from the last partition's
-        enqueue to the selection."""
-        G = dev.num_genomes
-        seconds: dict[str, float] = {}
-        with span("pass1", seconds) as sp:
-            host = torch.cat([self.tallies.to(torch.int64).reshape(-1)]
-                             + [lanes.reshape(-1) for _, lanes, _ in self.parts]).cpu().numpy()
-            tallies = host[:3 * G].reshape(G, 3)
-            walks = np.split(host[3 * G:].reshape(-1, G),
-                             np.cumsum([len(b) for b, _, _ in self.parts])[:-1])
-            log.info("Tallied %d kmers in %.2fs (streamed)", self.n_kmers,
-                     time.perf_counter() - self.t_start)
-            best, triple = _select_and_log(tallies, index, dev, self.cstats)
-        add_seconds(seconds, "pass1", sp.t0 - self.t_enqueued)
-        with span("pass2", seconds) as sp:
-            pileup_t = self._pass2(dev, walks, best)
-            _sync(dev.device)
-            log.info("Scattered pileup in %.2fs", sp.elapsed())
-        with span("d2h", seconds):
-            pileup = pileup_t.cpu().numpy()
-        return Mapped(best, triple, tallies, pileup, (dev.tally_mode(), "streamed"), seconds,
-                      self.counts)
-
-    def _pass2(self, dev: DeviceIndex, walks: list, best: int) -> torch.Tensor:
-        """Genome `best`'s pileup on the device from every partition."""
-        groups = {True: ([], [], []), False: ([], [], [])}  # saved: batches, probe, walk
-        for (batches, _, saved), walk in zip(self.parts, walks):
-            b, probe, w = groups[saved is not None]
-            b += batches
-            probe += saved or []
-            w += walk[:, best].tolist()
-        pileups = []
-        if groups[True][0]:
-            b, probe, w = groups[True]
-            pileups.append(pileup_from_saved(b, probe, w, dev.pass2_postings(), best,
-                                             self.mcfg, dev.g_total_len,
-                                             int(dev.file_bases[best])))
-        if groups[False][0]:
-            b, _, w = groups[False]
-            pileups.append(pileup_from_subindex(b, dev.subindex(best), w, self.mcfg,
-                                                dev.g_total_len))
-        if len(pileups) == 2:
-            a, b = pileups
-            pileups = [torch.cat([torch.maximum(a[:2], b[:2]), a[2:] + b[2:]])]
-        return pileups[0] if pileups else torch.zeros(
-            (4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
-
-
 def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
-                  threads: int) -> PendingStream:
+                  threads: int) -> PendingMap:
     """Streamed count -> tally (JAX engine.py:1137-1208): the native counter
     finalizes one key-range partition at a time; each partition is
     uploaded, cut into batches of cfg.batch_size and its pass 1 enqueued
-    on the device while the host sorts the next. No host sync happens
-    here: resolve() makes the sample's one. Partitions cover disjoint key
-    ranges and tallies are sums, so the result is the classic path's.
-    While the probe bytes of the partitions so far stay within
-    PROBE_BYTES_CAP a partition saves its probe (tally_save); past it, it
-    tallies without (tally) and pass 2 re-probes the sub-index. The
-    count's parts go into the sample's seconds (io/native.py), each
-    partition's upload and enqueue into `dispatch`."""
+    (_pass1) on the device while the host sorts the next, a part of the
+    returned PendingMap; pass 1's copy is enqueued after the last. No host
+    sync happens here: resolve() makes the sample's one. Partitions cover
+    disjoint key ranges and tallies are sums, so the result is the classic
+    path's. The count's parts go into the sample's seconds (io/native.py),
+    each partition's upload and enqueue and the copy's into `dispatch`."""
     seconds = {"h2d": 0.0}
     counters = {"piped": 0}
     with span("count", seconds) as count_span:
         device = dev.device
         mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
-        J = len(mcfg.positions)
-        per_q = probe_bytes_per_query(dev)
         acc = torch.zeros((dev.num_genomes, 3), dtype=torch.int32, device=device)
         parts = []
         totals = dict.fromkeys((f.name for f in fields(CountStats)), 0)
-        n_kmers = saved_bytes = 0
+        n_kmers = probe_bytes = 0
         for kmers, counts, stats in native.native_count_fastq_stream(
                 paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads,
                 seconds=seconds, counters=counters):
@@ -1045,13 +793,12 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
             with span("stream.dispatch", seconds, "dispatch"):
                 n_kmers += kmers.shape[0]
                 batches = _upload_async(kmers, counts, cfg.batch_size, device)
-                saved_bytes += kmers.shape[0] * J * per_q
-                if saved_bytes <= PROBE_BYTES_CAP:
-                    tallies, lanes, saved = tally_save(batches, dev, mcfg)
-                else:
-                    (tallies, lanes), saved = tally(batches, dev, mcfg, dev.tally_mode()), None
+                tallies, part, probe_bytes = _pass1(batches, kmers.shape[0], dev, mcfg,
+                                                    probe_bytes)
                 acc += tallies
-                parts.append((batches, lanes, saved))
+                parts.append(part)
+        with span("stream.dispatch", seconds, "dispatch"):
+            copy = _copy_pass1(acc, parts)
     cstats = CountStats(**totals)
     log.info("%d reads counted from %s (streamed), %d mate(s) while they inflated",
              cstats.total_reads, paths[0], counters["piped"])
@@ -1065,8 +812,8 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
     counts = {**map_counts(n_kmers, sum(len(batches) for batches, _, _ in parts), dev),
               **counters}
     log_memory_usage("Finished counting kmers", device)
-    return PendingStream(acc, parts, mcfg, n_kmers, cstats, count_span.t0, count_span.t1,
-                         seconds, counts)
+    return PendingMap(parts, *copy, mcfg, n_kmers, cstats, count_span.t0,
+                      (dev.tally_mode(), "streamed"), seconds, counts)
 
 
 class ShardedMapper:
@@ -1467,7 +1214,7 @@ def _run_jobs(cfg: CallConfig, index: BronkoIndex, dev: DeviceIndex, device: tor
                         mapped = pending.resolve(index, dev)
                 call_futs.append((label, job[0], job_ids[0], call_pool.submit(
                     _call_one, job[0], index, dev, cfg, mapped,
-                    pending.cstats.total_reads, pending.seconds, job_ids[0])))
+                    pending.cstats.total_reads, {}, job_ids[0])))
             except Exception:  # noqa: BLE001 — per-sample isolation
                 log.exception("Sample %s failed; continuing with remaining samples", label)
                 failures.append(job[0])

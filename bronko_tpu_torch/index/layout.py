@@ -13,9 +13,9 @@ genomes; neither exists when a bucket holds more than 255 postings.
 Built on first use and cached, so an index whose main path does not need
 them never uploads them: the per-posting genome ids of the flat tally
 (`posting_fids`), the selected genome's sub-index (`subindex`), which
-pass 2 probes when the saved probe cannot serve it, and the fused path's
-per-genome lengths and bases (`glen2_t`, `file_bases_t`), and the slot
-directory of the keys that kernel (b) searches through (`probe_dir`).
+pass 2 probes when the saved probe cannot serve it, the per-genome
+bases on the device (`file_bases_t`), and the slot directory of the keys
+that kernel (b) searches through (`probe_dir`).
 """
 
 from __future__ import annotations
@@ -97,9 +97,7 @@ class DeviceIndex:
     subindex_source: Callable[[int], tuple] = field(repr=False, default=None)
     _fids: torch.Tensor | None = field(repr=False, default=None)
     _subindex: dict = field(repr=False, default_factory=dict)
-    # (G,) int64 2*genome_lens and file_bases on the device, cached at the
-    # first fused sample (JAX's _glen2_dev / _fbases_dev)
-    _glen2: torch.Tensor | None = field(repr=False, default=None)
+    # (G,) int64 file_bases on the device, cached at first use
     _fbases: torch.Tensor | None = field(repr=False, default=None)
     # the keys' slot directory, built at the first single-word pass 1
     _probe_dir: ProbeDirectory | None = field(repr=False, default=None)
@@ -148,15 +146,9 @@ class DeviceIndex:
         bases = torch.from_numpy(self.file_bases).to(self.device)[fids]
         return (((local >> 6) + bases) << 22) | (fids << 6) | (local & 63)
 
-    def glen2_t(self) -> torch.Tensor:
-        """(G,) int64 2*genome_lens on the device (the device pick's)."""
-        if self._glen2 is None:
-            self._glen2 = _put_async(2 * self.genome_lens, self.device)
-        return self._glen2
-
     def file_bases_t(self) -> torch.Tensor:
-        """(G,) int64 file_bases on the device (the fused pass 2's, int64
-        postings)."""
+        """(G,) int64 file_bases on the device: kernel (c)'s file base read
+        at the selected genome on the int64 postings."""
         if self._fbases is None:
             self._fbases = _put_async(self.file_bases, self.device)
         return self._fbases
@@ -178,8 +170,8 @@ class DeviceIndex:
     def device_bytes(self) -> int:
         """Bytes of every tensor this index holds on its device now."""
         tensors = [self.keys, self.keys_ordered, self.offsets, self.hist, self.hist_words,
-                   self.postings_local32, self.postings, self._fids, self._glen2,
-                   self._fbases, None if self._probe_dir is None else self._probe_dir.table]
+                   self.postings_local32, self.postings, self._fids, self._fbases,
+                   None if self._probe_dir is None else self._probe_dir.table]
         for sub in self._subindex.values():
             tensors += [sub.keys_ordered, sub.offsets, sub.postings]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)

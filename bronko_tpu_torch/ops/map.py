@@ -3,8 +3,7 @@ genome's pileup (pass 2).
 
 Counterpart of the single-device paths of `bronko_tpu/ops/map.py`
 (tally_save_jit, tally_save_words_jit, tally_all_jit,
-pileup_from_saved_jit, pileup_from_saved_words_jit, pileup_all_jit,
-map_fused_jit; see
+pileup_from_saved_jit, pileup_from_saved_words_jit, pileup_all_jit; see
 that module's docstring for the reference semantics):
 
 PASS 1 — per batch: K1 canonicalizes the k-mers and computes the J
@@ -32,10 +31,6 @@ Integer max and add give the same result in any order. Every walk is
 exact and loops over its own range, so no lane count known on the host
 sizes it, and the JAX path's lane budget, overflow retry and dump-row
 masking have no job.
-
-FUSED — map_fused (JAX's map_fused_jit): pass 1, the genome pick on the
-device (pick_best_device) and pass 2 for that genome in one enqueue,
-with no host sync.
 
 WHOLE INDEX — probe_scatter / map_batch (JAX's, the step entry.py and the
 mesh's map step drive): one batch's K1 probe, the exact walk of every
@@ -232,48 +227,6 @@ def pileup_from_subindex(batches, sub, lanes, cfg: MapConfig,
         walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, sub.postings,
                      k=cfg.k, lens=lens)
     return pileup
-
-
-def pick_best_device(tallies: torch.Tensor, glen2: torch.Tensor) -> torch.Tensor:
-    """The host's pick (engine.pick_best_genome) on the device, as JAX's
-    _pick_best_device (map.py:774-788): perfect / (2*glen) in f64 —
-    equal to the host's perfect/glen/2 since halving is exact — with -1
-    for a genome of length 0, and the first maximum (torch.argmax's rule
-    for ties). Returns (1,) int64. Where no score is positive the host
-    pick finds none and the sample fails there."""
-    scores = torch.where(glen2 > 0, tallies[:, 0].to(torch.float64)
-                         / glen2.clamp_min(1).to(torch.float64), -1.0)
-    return scores.argmax().reshape(1)
-
-
-def map_fused(batches, dev, cfg: MapConfig, glen2: torch.Tensor, file_bases: torch.Tensor):
-    """Both passes and the genome pick in one enqueue, JAX's map_fused_jit
-    (map.py:829-867) on the single-word histogram: K1 and kernel (b) a
-    batch (tally_save), then pass2_fused. The walk is exact, so JAX's
-    static lane budget and its overflow flag have no counterpart. Returns
-    (tallies (G, 3) int32, lanes (nb, G) int64, best (1,) int64, saved,
-    pileup), all on the device, with no host sync."""
-    if dev.hist is None:
-        raise ValueError("map_fused needs the single-word histogram")
-    tallies, lanes, saved = tally_save(batches, dev, cfg)
-    best, pileup = pass2_fused(batches, saved, tallies, dev, cfg, glen2, file_bases)
-    return tallies, lanes, best, saved, pileup
-
-
-def pass2_fused(batches, saved, tallies: torch.Tensor, dev, cfg: MapConfig,
-                glen2: torch.Tensor, file_bases: torch.Tensor):
-    """map_fused after pass 1: the device pick from the tallies, then K2
-    and kernel (c)'s saved-probe entry a batch, which read the pick on the
-    device (and file_bases at it for int64 postings). Returns (best (1,)
-    int64, pileup (4, T+1, 4) int32), with no host sync."""
-    best = pick_best_device(tallies, glen2)
-    postings = dev.pass2_postings()
-    base = file_bases if postings.dtype == torch.int64 else None
-    pileup = torch.zeros((4, dev.g_total_len + 1, 4), dtype=torch.int32, device=dev.device)
-    for (kmers, counts), (start, h) in zip(batches, saved):
-        walk_scatter(pileup, _fold_table(kmers, counts, cfg.k), start, postings, k=cfg.k,
-                     h=h, best=best, file_base=base)
-    return best, pileup
 
 
 def probe_scatter(kmers, counts, keys_ordered, offsets, postings, pileup, *, cfg: MapConfig):

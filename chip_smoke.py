@@ -100,19 +100,20 @@ Phases, one line each; any failure exits non-zero:
      panel streamed (words), equal to phase 8's card run; s0 with
      PROBE_BYTES_CAP at its first partition's bytes, so the others
      re-probe the sub-index; s0-s2 with BRONKO_STREAM_FIRST=1 against
-     their classic cohort; the auto gate's decision and round trip on the
-     card; warm totals of both paths in turns, medians (q1, q3) of
-     max(N, 9) each;
- 16. fused: the fused single enqueue (PendingFused: pass 1, the genome
-     pick on the card and pass 2 with no host sync between them), which
-     every sample on the single histogram word takes: s0-s2 through
-     run_call, all ('hist', 'fused'), equal (tallies, genome, pileup,
-     files) to the same cohort two-pass (PROBE_BYTES_CAP at 1 byte:
-     ('hist', 'subindex')) and to the fused CPU run, with K1, (b), K2 and
-     (c) launched once a batch; s0 enqueued fused under
-     torch.cuda.set_sync_debug_mode('error'), its wall stages and the
-     card's own between events; the keys' slot directory (slots, rows a
-     slot, bytes, build time); kernels (b) probe_tally and (c)
+     their classic cohort; the gate's decision on the card with no
+     variable set; warm totals of both paths in turns, medians (q1, q3)
+     of max(N, 9) each;
+ 16. saved: the classic path with the saved probe (a one-part
+     PendingMap: pass 1 and its copy enqueued with no host sync, then the
+     host's pick and pass 2 from the probe), which every classic sample
+     on the single histogram word takes: s0-s2 through run_call, all
+     ('hist', 'saved'), equal (tallies, genome, pileup, files) to the same
+     cohort through the sub-index (PROBE_BYTES_CAP at 1 byte: ('hist',
+     'subindex')) and to the CPU run, with K1, (b), K2 and (c) launched
+     once a batch; s0 enqueued under
+     torch.cuda.set_sync_debug_mode('error') and resolved equal to the
+     cohort's s0, with its wall stages; the keys' slot directory (slots,
+     rows a slot, bytes, build time); kernels (b) probe_tally and (c)
      walk_scatter against their plain versions at s0's batch (B =
      152,679, J = 16, 2,509,920 keys): (b) on the fixture's words, on
      int64 words of 8 genomes with bit 63 set, on the fixture's keys with
@@ -122,15 +123,13 @@ Phases, one line each; any failure exits non-zero:
      postings mixed with empty ones; each timed with its byte bound
      (torch.searchsorted alone beside (b), (c)'s floor beside (c): the
      same posting, record and pileup traffic on addresses computed
-     beforehand, tools/torch_kernel_variants.py); warm totals of a lone
-     s0 fused and two-pass, max(N, 9) each in turns;
+     beforehand, tools/torch_kernel_variants.py);
  17. the script's own wall time, the kernels line, the card's name and
      power limit, and the last stdout line: {"ok": true, "device": {...}}.
 
-The main path (phase 5) takes the fused PendingFused, as every sample on
-the fixture's index (the single histogram word, a probe under
-PROBE_BYTES_CAP) does; its stage line gives the wall stages and the
-card's own between events.
+The main path (phase 5) takes the saved probe, ('hist', 'saved'), as every
+classic sample on the fixture's index (the single histogram word, a
+probe within PROBE_BYTES_CAP) does; its stage line gives the wall stages.
 """
 
 from __future__ import annotations
@@ -151,7 +150,7 @@ import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
-from contextlib import contextmanager, nullcontext  # noqa: E402
+from contextlib import contextmanager  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -205,7 +204,6 @@ FLAT_REPS = 3  # (d) and its plain version in turns at the 300-strain panel
 MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
 STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
-FUSED_WARM = 9  # warm runs of each path in the fused phase, at least
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -1520,7 +1518,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     the panel phase's card run `panel_res`; s0 with the probe cap at its
     first partition's bytes (the other partitions re-probe the sub-index);
     a 3-sample cohort with BRONKO_STREAM_FIRST=1 against its classic run;
-    the auto gate's decision and round trip; warm totals of both paths in
+    the gate's decision with no variable set; warm totals of both paths in
     turns. Returns the streamed s0 run's launch counts."""
     fastq = fastqs[0]
     cfg = call_args(db, fastq, work, "host")
@@ -1546,7 +1544,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
         res_s, launches = drive(lambda: run_call(db, fastq, out_s, None, "host"))
     with stream_env(BRONKO_NO_STREAM="1"):
         res_c = run_call(db, fastq, out_c, None, "host")
-    if (res_s.path, res_c.path) != (("hist", "streamed"), ("hist", "fused")):
+    if (res_s.path, res_c.path) != (("hist", "streamed"), ("hist", "saved")):
         fail("stream", f"paths {res_s.path} (BRONKO_STREAM=1), {res_c.path} (BRONKO_NO_STREAM=1)")
     kernels_ran(launches, len(nonempty), len(nonempty), "s0 streamed")
     same_as(res_s, res_c, out_s, out_c, "s0 streamed against classic")
@@ -1595,7 +1593,7 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     if not isinstance(cohort, list) or not isinstance(classic, list):
         fail("stream", f"a cohort run failed: exit {cohort}, {classic}")
     paths = [r.path for r in cohort]
-    if paths != [("hist", "streamed")] + [("hist", "fused")] * (len(fastqs) - 1):
+    if paths != [("hist", "streamed")] + [("hist", "saved")] * (len(fastqs) - 1):
         fail("stream", f"the cohort's paths with BRONKO_STREAM_FIRST=1: {paths}")
     if read_outputs(outs["first"]) != read_outputs(outs["classic"]):
         fail("stream", "the cohort with its first sample streamed writes other files")
@@ -1606,12 +1604,11 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     card_dev = build_device_index(load_index(db), CARD)
     with stream_env():
         decision = engine._can_stream(cfg, card_dev, None)
-        lat = engine._dispatch_latency_s(CARD)
-        calib = engine._load_stream_calib(CARD)
         res_auto = run_call(db, fastq, os.path.join(work, "stream_auto"), None, "host")
-    print(f"[stream] auto gate on the card: {'streamed' if decision else 'classic'} (round trip "
-          f"{lat * 1e3:.4f} ms, by {'the calibration' if calib else 'the latency proxy'}); "
-          f"a lone sample with no variable set took {res_auto.path} ({smi})", flush=True)
+    if not decision or res_auto.path != ("hist", "streamed"):
+        fail("stream", f"with no variable set the gate says {decision}, s0 took {res_auto.path}")
+    print(f"[stream] gate on the card with no variable set: streamed; a lone sample took "
+          f"{res_auto.path} ({smi})", flush=True)
 
     n = max(warm, STREAM_WARM)
     runs = {"streamed": [], "classic": []}
@@ -1656,7 +1653,7 @@ def _directory_line(dev, smi: str) -> str:
         torch.cuda.synchronize()
         took.append(time.perf_counter() - t0)
     if not torch.equal(directory.table, dev.probe_dir().table):
-        fail("fused", "a fresh directory differs from the DeviceIndex's")
+        fail("saved", "a fresh directory differs from the DeviceIndex's")
     sizes = torch.diff(directory.table).double()
     U, S = dev.keys.shape[0], sizes.shape[0]
     return (f"directory of the {U} keys: S = {S} slots (shift {directory.shift}), "
@@ -1698,7 +1695,7 @@ def _probe_cases(dev, q, counts):
     return cases
 
 
-def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
+def _saved_kernel_rows(dev, batch, best: int, smi: str) -> dict:
     """Kernels (b) and (c) against their plain versions at one sample's
     batch on the fixture's index: (b) on its own histogram, on int64
     words of 8 genomes with bit 63 set, and on the skewed, k = 31 and
@@ -1712,7 +1709,7 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
     k = dev.k
     positions = tuple(filtered_bucket_positions(k, 2, False))
     q, _, _ = cuda_buckets.bucket_queries(kmers, k, positions)
-    print(f"[fused] {_directory_line(dev, smi)}", flush=True)
+    print(f"[saved] {_directory_line(dev, smi)}", flush=True)
     rng = np.random.default_rng(SEED + 11)
     hist8 = torch.from_numpy(rng.integers(0, 1 << 63, size=dev.hist.shape[0], dtype=np.int64)
                              | np.int64(-(1 << 63))).to(CARD)
@@ -1736,12 +1733,12 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
         torch.cuda.synchronize()
         rows["probe_tally"]["max_abs_err"] = max(rows["probe_tally"]["max_abs_err"], err)
         if err != 0.0:
-            fail("fused", f"probe_tally differs from its plain version at {label}")
+            fail("saved", f"probe_tally differs from its plain version at {label}")
         scratch = torch.zeros_like(tallies)
         out = {"ms": median_ms(lambda: cuda_map.probe_tally(*args, scratch)),
                "plain_ms": median_ms(lambda: cuda_map.probe_tally_plain(*args, scratch)),
                "bound_ms": bound_ms((q_c, counts_c, keys, offsets, hist), (*got, tallies))}
-        print(f"[fused] probe_tally B={q_c.shape[0]} J={q_c.shape[1]} U={keys.shape[0]} "
+        print(f"[saved] probe_tally B={q_c.shape[0]} J={q_c.shape[1]} U={keys.shape[0]} "
               f"{label}: equal; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
               f"bound {out['bound_ms']:.4f} ms (share {out['bound_ms'] / out['ms']:.3f}; "
               f"directory of {directory.table.numel() - 1} slots, the largest "
@@ -1750,7 +1747,7 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
             qs = q ^ tmap.SIGN_BIT
             out["library_ms"] = median_ms(
                 lambda: torch.searchsorted(dev.keys_ordered, qs, right=True))
-            print(f"[fused] torch.searchsorted alone on the same queries: "
+            print(f"[saved] torch.searchsorted alone on the same queries: "
                   f"{out['library_ms']:.4f} ms ({smi})", flush=True)
             rows["probe_tally"].update(out)
             saved, lanes = got[:2], got[2]
@@ -1783,7 +1780,7 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
         walked = int(long_lens.sum()) if long else n_lanes
         rows["walk_scatter"]["max_abs_err"] = max(rows["walk_scatter"]["max_abs_err"], err)
         if err != 0.0 or int(got[2:].sum()) != walked:
-            fail("fused", f"walk_scatter differs from its plain version with {label}")
+            fail("saved", f"walk_scatter differs from its plain version with {label}")
         scratch = empty.clone()
         # each input read once, the walked postings alone, the pileup written once
         inputs = (long_pc, long_start, long_lens) if long else (pc, start, h, best_t)
@@ -1794,7 +1791,7 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         rows_of = f"{long_lens.numel()} rows" if long else f"B={kmers.shape[0]} J={start.shape[1]}"
         lanes_of = f"{walked} lanes" + ("" if long else f" for genome {best}")
-        print(f"[fused] walk_scatter {rows_of} {lanes_of}, {label}: "
+        print(f"[saved] walk_scatter {rows_of} {lanes_of}, {label}: "
               f"equal; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
               f"{out['bound_ms']:.4f} ms (share {out['bound_ms'] / out['ms']:.3f}; {smi})",
               flush=True)
@@ -1805,9 +1802,9 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
         floor_got = floor(empty.clone(), pc_walked, k, at, rec, postings, file_base)
         torch.cuda.synchronize()
         if not torch.equal(floor_got, got):
-            fail("fused", f"the walk's floor differs from walk_scatter with {label}")
+            fail("saved", f"the walk's floor differs from walk_scatter with {label}")
         floor_ms = median_ms(lambda: floor(scratch, pc_walked, k, at, rec, postings, file_base))
-        print(f"[fused] walk_scatter's floor with {label} (the same posting, record and "
+        print(f"[saved] walk_scatter's floor with {label} (the same posting, record and "
               f"pileup traffic on addresses computed beforehand, no walk): {floor_ms:.4f} ms, "
               f"bound {out['bound_ms']:.4f} ms; the kernel at {out['ms'] / floor_ms:.3f}x the "
               f"floor ({smi})", flush=True)
@@ -1817,11 +1814,11 @@ def _fused_kernel_rows(dev, batch, best: int, smi: str) -> dict:
 
 
 @contextmanager
-def two_pass():
+def no_saved_probe():
     """PROBE_BYTES_CAP at 1 byte for the duration: no sample saves its
-    probe, so each takes the two-pass path ('hist', 'subindex': pass 1,
-    the host's pick, pass 2 through the genome's sub-index), the one the
-    single histogram word takes past the cap."""
+    probe, so each takes ('hist', 'subindex'): pass 1, the host's pick,
+    pass 2 through the genome's sub-index, the path the single histogram
+    word takes past the cap."""
     cap, engine.PROBE_BYTES_CAP = engine.PROBE_BYTES_CAP, 1
     try:
         yield
@@ -1829,15 +1826,15 @@ def two_pass():
         engine.PROBE_BYTES_CAP = cap
 
 
-def phase_fused(db: str, fastqs: list[str], work: str, warm: int, smi: str):
-    """The fused single enqueue (PendingFused), which every sample on the
-    single histogram word takes: s0-s2 through run_call on the card, all
-    ('hist', 'fused'), against the same cohort two-pass on the card
-    ('hist', 'subindex') and the fused run on the CPU; one fused sample
-    enqueued under torch.cuda.set_sync_debug_mode('error'); kernels (b)
-    and (c) against their plain versions at s0's batch; warm totals of a
-    lone s0, fused and two-pass, in turns. Returns ((b) and (c)'s kernel
-    rows, the fused cohort's launches)."""
+def phase_saved(db: str, fastqs: list[str], work: str, smi: str):
+    """The classic path with the saved probe (a one-part PendingMap), which
+    every classic sample on the single histogram word takes: s0-s2 through
+    run_call on the card, all ('hist', 'saved'), against the same cohort
+    through the sub-index on the card ('hist', 'subindex') and the run on
+    the CPU; s0 enqueued under torch.cuda.set_sync_debug_mode('error') and
+    resolved; kernels (b) and (c) against their plain versions at s0's
+    batch. Returns ((b) and (c)'s kernel rows, the saved cohort's
+    launches)."""
     index = load_index(db)
 
     def cohort(device, out):
@@ -1845,80 +1842,57 @@ def phase_fused(db: str, fastqs: list[str], work: str, warm: int, smi: str):
         cfg = call_args(db, fastqs, os.path.join(work, out), "host")
         return engine.run_call(cfg, index, dev), dev
 
-    (fused, dev_f), launches = drive(lambda: cohort(CARD, "fused_gpu"))
-    with two_pass():
-        two_pass_res, _ = cohort(CARD, "fused_two_pass")
-    cpu, _ = cohort(torch.device("cpu"), "fused_cpu")
-    for name, res, path in (("card, fused", fused, "fused"),
-                            ("card, two-pass", two_pass_res, "subindex"),
-                            ("CPU, fused", cpu, "fused")):
+    (saved, dev), launches = drive(lambda: cohort(CARD, "saved_gpu"))
+    with no_saved_probe():
+        subindex, _ = cohort(CARD, "saved_subindex")
+    cpu, _ = cohort(torch.device("cpu"), "saved_cpu")
+    for name, res, path in (("card, saved", saved, "saved"),
+                            ("card, sub-index", subindex, "subindex"),
+                            ("CPU, saved", cpu, "saved")):
         if [r.path for r in res] != [("hist", path)] * len(fastqs):
-            fail("fused", f"{name}: paths {[r.path for r in res]}")
-    for res in (two_pass_res, cpu):
-        for a, b in zip(fused, res):
+            fail("saved", f"{name}: paths {[r.path for r in res]}")
+    for res in (subindex, cpu):
+        for a, b in zip(saved, res):
             if (a.best != b.best or not np.array_equal(a.tallies, b.tallies)
                     or not np.array_equal(a.pileup, b.pileup)):
-                fail("fused", f"{a.summary.filename}: tallies, genome or pileup differ")
-    files = read_outputs(os.path.join(work, "fused_gpu"))
-    if (files != read_outputs(os.path.join(work, "fused_two_pass"))
-            or files != read_outputs(os.path.join(work, "fused_cpu"))):
-        fail("fused", "the fused cohort's files differ from the two-pass or the CPU run's")
+                fail("saved", f"{a.summary.filename}: tallies, genome or pileup differ")
+    files = read_outputs(os.path.join(work, "saved_gpu"))
+    if (files != read_outputs(os.path.join(work, "saved_subindex"))
+            or files != read_outputs(os.path.join(work, "saved_cpu"))):
+        fail("saved", "the saved cohort's files differ from the sub-index or the CPU run's")
     cfg = call_args(db, fastqs[0], work, "host")
     n_batches = sum(-(-(r.summary.n_perfect + r.summary.n_variant + r.summary.n_unmapped)
-                      // cfg.batch_size) for r in fused)
+                      // cfg.batch_size) for r in saved)
     per_batch = [launches[n] for n in ("bucket_queries", "probe_tally", "fold_table",
                                        "walk_scatter")]
     if per_batch != [n_batches] * 4 or launches["pack_windows"] or launches["gather"]:
-        fail("fused", f"launches {launches}, expected K1, (b), K2 and (c) {n_batches} each")
-    print(f"[fused] {len(fastqs)} samples on a fresh DeviceIndex: paths ('hist', 'fused'); "
-          f"tallies, genome {fused[0].best}, pileups and {len(files)} files equal the two-pass "
-          f"card run and the fused CPU run; launches {launches} (K1, (b), K2 and (c) once "
-          f"each a batch); {stage_line('fused s0', fused[0], smi)}", flush=True)
+        fail("saved", f"launches {launches}, expected K1, (b), K2 and (c) {n_batches} each")
+    print(f"[saved] {len(fastqs)} samples on a fresh DeviceIndex: paths ('hist', 'saved'); "
+          f"tallies, genome {saved[0].best}, pileups and {len(files)} files equal the sub-index "
+          f"card run and the CPU run; launches {launches} (K1, (b), K2 and (c) once "
+          f"each a batch); {stage_line('saved s0', saved[0], smi)}", flush=True)
 
     counted = engine._count_job([fastqs[0]], cfg, index.k, CARD, upload=True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
-        pending = engine._map_one(counted, index, dev_f, cfg)
+        pending = engine._map_one(counted, index, dev, cfg)
         enqueue_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if not isinstance(pending, engine.PendingFused):
-        fail("fused", f"s0 on the single histogram word took {type(pending).__name__}")
-    mapped = pending.resolve(index, dev_f)
-    if (mapped.best != fused[0].best or not np.array_equal(mapped.tallies, fused[0].tallies)
-            or not np.array_equal(mapped.pileup, fused[0].pileup)):
-        fail("fused", "the sample enqueued under the sync check differs from the cohort's")
+    if not isinstance(pending, engine.PendingMap) or pending.path != ("hist", "saved"):
+        fail("saved", f"s0 on the single histogram word took {type(pending).__name__}")
+    mapped = pending.resolve(index, dev)
+    if (mapped.best != saved[0].best or not np.array_equal(mapped.tallies, saved[0].tallies)
+            or not np.array_equal(mapped.pileup, saved[0].pileup)):
+        fail("saved", "the sample enqueued under the sync check differs from the cohort's")
     wall = ", ".join(f"{s} {mapped.seconds[s]:.6f}" for s in ("pass1", "pass2", "d2h"))
-    print(f"[fused] s0 enqueued under set_sync_debug_mode('error'): no sync, enqueue "
+    print(f"[saved] s0 enqueued under set_sync_debug_mode('error'): no sync, enqueue "
           f"{enqueue_s:.6f}s; resolved equal to the cohort's s0; wall stages {wall} ({smi})",
           flush=True)
 
-    rows = _fused_kernel_rows(dev_f, counted.batches[0], fused[0].best, smi)
-
-    n = max(warm, FUSED_WARM)
-    devs = {"fused": build_device_index(index, CARD), "two-pass": build_device_index(index, CARD)}
-    runs = {name: [] for name in devs}
-    for i in range(n):
-        for name in ("fused", "two-pass") if i % 2 == 0 else ("two-pass", "fused"):
-            with two_pass() if name == "two-pass" else nullcontext():
-                (res,) = engine.run_call(
-                    call_args(db, fastqs[0], os.path.join(work, f"fused_warm_{name}"), "host"),
-                    index, devs[name])
-            runs[name].append(res)
-    med = {}
-    for name, results in runs.items():
-        if {r.path for r in results} != {("hist", "fused" if name == "fused" else "subindex")}:
-            fail("fused", f"warm {name} runs took {sorted({r.path for r in results})}")
-        q1, med[name], q3 = statistics.quantiles([stage_total(r) for r in results], n=4)
-        stages = ", ".join(f"{s} {statistics.median(r.seconds[s] for r in results):.6f}"
-                           for s in engine.STAGES)
-        print(f"[fused warm {name}] s0 alone, median (q1, q3) of {n}, in turns: total "
-              f"{med[name]:.6f} ({q1:.6f}, {q3:.6f}) -> {results[0].reads / med[name]:.0f} "
-              f"reads/s; stage medians {stages} ({smi})", flush=True)
-    print(f"[fused] warm median fused / two-pass = {med['fused'] / med['two-pass']:.4f} "
-          f"({smi})", flush=True)
+    rows = _saved_kernel_rows(dev, counted.batches[0], saved[0].best, smi)
     return rows, launches
 
 
@@ -2013,8 +1987,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     stream_launches = phase_stream(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs,
                                    work, ref, panel_res, args.warm, smi)
     with stream_env(BRONKO_NO_STREAM="1"):
-        fused_rows, fused_launches = phase_fused(db + ".bkdb", fastqs, work, args.warm, smi)
-    rows.update(fused_rows)
+        saved_rows, saved_launches = phase_saved(db + ".bkdb", fastqs, work, smi)
+    rows.update(saved_rows)
 
     # each kernel's launches on its own path: K1, (b), K2 and (c) on the
     # main path, K3 on the device counter's, K4 on the gather probe's
@@ -2024,8 +1998,8 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     print(f"[launches] main path {launches} (K3: the device counter's path; (d): the 300-strain "
           f"panel's call, {flat_launches}); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
-          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; fused "
-          f"cohort {fused_launches}", flush=True)
+          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; saved "
+          f"cohort {saved_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

@@ -3,7 +3,8 @@ multi-word one), (c) walk_scatter (by ranges, the single saved word and
 W saved words), (d) walk_hits and probe_scatter on them, the port's main
 path (with the host and the device counter), the streamed single-sample
 path, the panel paths, the index built on the card, a device-counter
-cohort on two count workers and a cohort of fused samples, on a CUDA
+cohort on two count workers and a cohort of samples with the saved probe
+(one enqueued under set_sync_debug_mode('error')), on a CUDA
 card, against the plain PyTorch versions on the same card, the host
 layout and the CPU run. Skipped without a card; on
 one: python -m pytest tests/test_torch_cuda.py -m cuda"""
@@ -336,7 +337,7 @@ def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, ca
         torch.cuda.synchronize()
         launches[name] = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
     assert results["gpu"].path == results["cpu"].path == ("hist", "streamed")
-    assert results["gpu_classic"].path == ("hist", "fused" if cap == "default" else "subindex")
+    assert results["gpu_classic"].path == ("hist", "saved" if cap == "default" else "subindex")
     batches = sum(-(-n // 1024) for n in parts)
     assert launches["gpu"]["bucket_queries"] >= batches > len(parts)
     assert launches["gpu"]["fold_table"] >= 1
@@ -662,10 +663,12 @@ def test_map_wrappers_reject_what_the_kernels_do_not_take(gpu):
 
 def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeypatch):
     """Three samples of a 2-genome panel on the card take ('hist',
-    'fused'), launching K1, (b), K2 and (c) once each a batch, with the
-    card's own stage seconds kept beside the wall ones; their tallies,
-    picks, pileups and files equal the two-pass run on the card (the
-    probe cap at 1 byte: ('hist', 'subindex')) and the fused CPU run."""
+    'saved'), launching K1, (b), K2 and (c) once each a batch, every
+    stage's seconds kept; their tallies, picks, pileups and files equal
+    the sub-index run on the card (the probe cap at 1 byte: ('hist',
+    'subindex')) and the CPU run. The first sample's pass 1 and its copy
+    enqueue under torch.cuda.set_sync_debug_mode('error') (no host sync),
+    and its resolve() equals the cohort's."""
     rng = np.random.default_rng(47)
     base = make_genome(rng, 1500)
     decoy = bytearray(base)
@@ -694,7 +697,7 @@ def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeyp
                                           output_pileup=True, batch_size=4096), index, dev)
             torch.cuda.synchronize()
         launched = {n: cuda_lib.LAUNCHES[n] - before[n] for n in before}
-        want_path = ("hist", "subindex") if cap else ("hist", "fused")
+        want_path = ("hist", "subindex") if cap else ("hist", "saved")
         assert [r.path for r in results] == [want_path] * 3
         if name == "gpu":
             n = launched["bucket_queries"]
@@ -705,6 +708,21 @@ def test_fused_cohort_on_the_card_equals_two_pass_and_cpu(gpu, tmp_path, monkeyp
                 assert min(r.seconds.values()) >= 0 and r.seconds["pass1"] > 0
         runs[name] = (results, {f: open(tmp_path / name / f, "rb").read()
                                 for f in sorted(os.listdir(tmp_path / name))})
+        if name == "gpu":
+            cfg = CallConfig(genomes=refs, reads=fqs[:1], output=str(tmp_path / "sync"),
+                             batch_size=4096)
+            counted = engine._count_job(fqs[:1], cfg, index.k, gpu, upload=True)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = engine._map_one(counted, index, dev, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert isinstance(pending, engine.PendingMap) and pending.path == want_path
+            mapped = pending.resolve(index, dev)
+            assert mapped.best == results[0].best
+            np.testing.assert_array_equal(mapped.tallies, results[0].tallies)
+            np.testing.assert_array_equal(mapped.pileup, results[0].pileup)
     for name in ("gpu", "gpu_two_pass"):
         for got, want in zip(runs[name][0], runs["cpu"][0]):
             assert got.best == want.best == 0

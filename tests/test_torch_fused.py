@@ -1,10 +1,12 @@
-"""The port's fused single-enqueue map (ops/map.map_fused, the engine's
-PendingFused) on the CPU against bronko_tpu's map_fused_jit and run_call:
-tallies, walk lengths, the device pick and the pileup array-equal; a
-cohort's files byte-equal with its samples fused, two-pass and in JAX;
-the path chosen by the index alone; the selection guard; a sample with no
-positive score; and the plain versions of kernels (b) and (c) against the
-JAX bodies they fuse. Every comparison is exact (tolerance 0)."""
+"""The port's map with the saved probe on the single histogram word (the
+engine's one-part PendingMap: tally_save, the host pick, pileup_from_saved)
+on the CPU against bronko_tpu's fused map_fused_jit and run_call:
+tallies, walk lengths, the pick and the pileup array-equal; the host pick
+against JAX's device pick; a cohort's files byte-equal with its samples
+saved, through the sub-index and in JAX; the path chosen by the index
+alone; a sample with no positive score; and the plain versions of
+kernels (b) and (c) against the JAX bodies they fuse. Every comparison is
+exact (tolerance 0)."""
 
 import logging
 import os
@@ -32,6 +34,7 @@ from bronko_tpu_torch.index import layout as tl  # noqa: E402
 from bronko_tpu_torch.index.model import from_jax_index  # noqa: E402
 from bronko_tpu_torch.ops import map as tm  # noqa: E402
 from bronko_tpu_torch.ops.codec import from_u64  # noqa: E402
+from bronko_tpu_torch.ops.count import CountStats  # noqa: E402
 from bronko_tpu_torch.ops.cuda_buckets import bucket_queries_plain, fold_table_plain  # noqa: E402
 from bronko_tpu_torch.ops.cuda_map import probe_tally_plain, walk_scatter_plain  # noqa: E402
 from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
@@ -45,9 +48,9 @@ CASES = [("g1", False), ("g4", False), ("g6", False), ("g8_signbit", False),
 
 
 def _panel(tmp_path, case, wide):
-    """(JAX DeviceIndex, the port's on the CPU, (nb, B) k-mers and counts);
-    `wide` drops the int32 postings, so both walk the int64 global ones
-    (a genome of 2^25 bp or more)."""
+    """(JAX DeviceIndex, the port's on the CPU, the port's index, (nb, B)
+    k-mers and counts); `wide` drops the int32 postings, so both walk the
+    int64 global ones (a genome of 2^25 bp or more)."""
     rng = np.random.default_rng(sum(map(ord, case)) + 3 * wide)
     files = _files(rng, case)
     index = make_index(tmp_path, files, 21)
@@ -60,7 +63,7 @@ def _panel(tmp_path, case, wide):
         td = tl.build_device_index(from_jax_index(index), CPU)
     assert td.hist is not None and td.fid_grouped
     kb, cb = _batches(rng, files, 21)
-    return jd, td, kb, cb
+    return jd, td, from_jax_index(index), kb, cb
 
 
 def _port_batches(kb, cb):
@@ -69,14 +72,21 @@ def _port_batches(kb, cb):
 
 @pytest.mark.parametrize("case,wide", CASES)
 def test_map_fused_matches_jax(tmp_path, case, wide):
-    """map_fused against map_fused_jit with a lane budget no batch
-    overflows: tallies, lane totals (JAX keeps the max over batches),
-    the device pick (the first maximum on a tie) and the pileup."""
-    jd, td, kb, cb = _panel(tmp_path, case, wide)
+    """The engine's one-part PendingMap (_map_one: pass 1 with the saved
+    probe; its resolve: the host pick, pass 2 from the probe) against
+    map_fused_jit with a lane budget no batch overflows: tallies, lane
+    totals (JAX keeps the max over batches), the saved probe, the pick
+    (the first maximum on a tie) and the pileup."""
+    jd, td, tindex, kb, cb = _panel(tmp_path, case, wide)
     batches = _port_batches(kb, cb)
     mcfg = td.map_config(2, False)
-    tallies, lanes, best, saved, pileup = tm.map_fused(batches, td, mcfg, td.glen2_t(),
-                                                       td.file_bases_t())
+    counted = te.Counted(kb.reshape(-1), cb.reshape(-1).astype(np.int64),
+                         CountStats(unique_counted_kmers=kb.size), batches, {})
+    pending = te._map_one(counted, tindex, td, CallConfig(n_fixed=2, use_full_kmer=False))
+    assert isinstance(pending, te.PendingMap) and pending.path == ("hist", "saved")
+    ((_, lanes, saved),) = pending.parts
+    mapped = pending.resolve(tindex, td)
+    tallies, best, pileup = mapped.tallies, mapped.best, mapped.pileup
 
     jcfg = jd.map_config(2, False)
     gcfg = replace(jcfg, total_len=jd.g_total_len, max_bucket=jd.g_max_bucket,
@@ -89,35 +99,34 @@ def test_map_fused_matches_jax(tmp_path, case, wide):
         jnp.asarray(jd.file_bases.astype(np.int32)), jcfg, gcfg)
     j_tallies, j_lanes, j_best, j_start, j_h, j_pileup, j_overflow = out[:7]
     assert int(j_overflow) == 0
-    np.testing.assert_array_equal(tallies.numpy(), np.asarray(j_tallies))
+    np.testing.assert_array_equal(tallies, np.asarray(j_tallies))
     np.testing.assert_array_equal(lanes.max(dim=0).values.numpy(), np.asarray(j_lanes))
-    assert best.shape == (1,) and int(best) == int(j_best)
+    assert best == int(j_best)
     np.testing.assert_array_equal(torch.stack([s for s, _ in saved]).numpy(),
                                   np.asarray(j_start))
     np.testing.assert_array_equal(torch.stack([h for _, h in saved]).numpy(),
                                   np.asarray(j_h))
-    np.testing.assert_array_equal(pileup.numpy(), np.asarray(j_pileup))
-    assert int(pileup[2:].sum()) == int(lanes[:, int(best)].sum())  # one add per lane
+    np.testing.assert_array_equal(pileup, np.asarray(j_pileup))
+    assert int(pileup[2:].sum()) == int(lanes[:, best].sum())  # one add per lane
     if case == "twins":
-        assert tallies[0, 0] == tallies[1, 0] > 0 and int(best) == 0
-    assert int(best) == te.pick_best_genome(tallies.numpy(), td)
+        assert tallies[0, 0] == tallies[1, 0] > 0 and best == 0
 
 
 @pytest.mark.parametrize("perfect,lens", [
     ([10, 10], [100, 100]), ([10, 20], [100, 200]), ([10, 21], [100, 200]),
     ([16777216, 16777217], [1000, 1000]), ([0, 5, 5], [0, 50, 50]), ([0, 0], [10, 10])])
 def test_pick_best_device_matches_jax(perfect, lens):
-    """The device pick equals JAX's _pick_best_device and, where a score
-    is positive, the host pick (ties: the first maximum)."""
+    """The host pick (engine.pick_best_genome) equals JAX's device pick
+    _pick_best_device where a score is positive (ties: the first maximum;
+    a genome of length 0 never wins), and is None where none is."""
     tallies = np.zeros((len(perfect), 3), np.int32)
     tallies[:, 0] = perfect
     glen2 = 2 * np.asarray(lens, np.int64)
-    got = tm.pick_best_device(torch.from_numpy(tallies), torch.from_numpy(glen2))
-    assert got.dtype == torch.int64 and got.shape == (1,)
-    assert int(got) == int(jm._pick_best_device(jnp.asarray(tallies), jnp.asarray(glen2)))
+    want = int(jm._pick_best_device(jnp.asarray(tallies), jnp.asarray(glen2)))
     dev = type("Dev", (), {"num_genomes": len(perfect), "genome_lens": np.asarray(lens)})
     host = te.pick_best_genome(tallies.astype(np.int64), dev)
-    assert host is None or host == int(got)
+    positive = any(p > 0 and n > 0 for p, n in zip(perfect, lens))
+    assert host == (want if positive else None)
 
 
 @pytest.mark.parametrize("case,wide", [("g4", False), ("g8_signbit", False), ("g4", True)])
@@ -126,7 +135,7 @@ def test_plain_kernels_match_jax_bodies(tmp_path, case, wide):
     _tally_save_body, and walk_scatter_plain after K2's against
     _pileup_from_saved_body for every genome, through the saved-probe
     entry and the (start, lens) one."""
-    jd, td, kb, cb = _panel(tmp_path, case, wide)
+    jd, td, _, kb, cb = _panel(tmp_path, case, wide)
     batches = _port_batches(kb, cb)
     mcfg = td.map_config(2, False)
     G, k = td.num_genomes, mcfg.k
@@ -213,7 +222,7 @@ def _outputs(out):
 def _port_run(cohort, reads, out, monkeypatch, cap=None):
     """The port's run_call on the CPU on a fresh DeviceIndex; `cap` sets
     PROBE_BYTES_CAP (1: no probe is saved, so every sample takes the
-    two-pass sub-index path). Returns (results, files)."""
+    sub-index pass 2). Returns (results, files)."""
     refs, _, _, jindex = cohort
     monkeypatch.setenv("BRONKO_NO_STREAM", "1")
     if cap is not None:
@@ -241,22 +250,22 @@ def _jax_run(cohort, reads, out, monkeypatch):
 
 def test_fused_cohort_matches_jax_and_two_pass(cohort, tmp_path, monkeypatch, caplog):
     """Three samples on the single histogram word all take ('hist',
-    'fused'), the first one too, and write the files of bronko_tpu's
-    fused run and of the port's two-pass run (the probe cap at 1 byte:
+    'saved'), the first one too, and write the files of bronko_tpu's
+    fused run and of the port's sub-index run (the probe cap at 1 byte:
     ('hist', 'subindex')), byte for byte."""
     _, fqs, _, _ = cohort
     with caplog.at_level(logging.INFO, logger="bronko"):
-        fused, files = _port_run(cohort, fqs, str(tmp_path / "fused"), monkeypatch)
-        assert sum(r.getMessage().endswith("(fused)") for r in caplog.records) == 3
+        saved, files = _port_run(cohort, fqs, str(tmp_path / "saved"), monkeypatch)
+        assert sum(r.getMessage().startswith("Tallied") for r in caplog.records) == 3
         caplog.clear()
         want = _jax_run(cohort, fqs, str(tmp_path / "jax"), monkeypatch)
         assert any("(fused)" in r.getMessage() for r in caplog.records)
-    two_pass, files_2 = _port_run(cohort, fqs, str(tmp_path / "two_pass"), monkeypatch, cap=1)
-    assert [r.path for r in fused] == [("hist", "fused")] * 3
-    assert [r.path for r in two_pass] == [("hist", "subindex")] * 3
+    subindex, files_2 = _port_run(cohort, fqs, str(tmp_path / "subindex"), monkeypatch, cap=1)
+    assert [r.path for r in saved] == [("hist", "saved")] * 3
+    assert [r.path for r in subindex] == [("hist", "subindex")] * 3
     assert len(files) == 7 and files == want
     assert files_2 == files
-    for a, b in zip(fused, two_pass):
+    for a, b in zip(saved, subindex):
         assert a.best == b.best == 0
         np.testing.assert_array_equal(a.tallies, b.tallies)
         np.testing.assert_array_equal(a.pileup, b.pileup)
@@ -266,7 +275,7 @@ def test_fused_cohort_matches_jax_and_two_pass(cohort, tmp_path, monkeypatch, ca
 def test_path_follows_the_index_alone(cohort, tmp_path, monkeypatch):
     """Which path a sample takes depends on the index, not on what ran
     before it: on one DeviceIndex reused across runs, each run's lone
-    sample is fused. On the CPU its stage seconds are wall seconds
+    sample saves its probe. On the CPU its stage seconds are wall seconds
     (every one present, none negative), the spans' parts beside them."""
     _, fqs, _, jindex = cohort
     index = from_jax_index(jindex)
@@ -278,30 +287,15 @@ def test_path_follows_the_index_alone(cohort, tmp_path, monkeypatch):
                                         output=str(tmp_path / f"o{i}"), batch_size=4096,
                                         chunk_reads=8192), index, dev)
         results.append(res)
-    assert [r.path for r in results] == [("hist", "fused")] * 2
+    assert [r.path for r in results] == [("hist", "saved")] * 2
     for r in results:
         assert tuple(r.seconds) == te.STAGES + te.SPAN_KEYS and min(r.seconds.values()) >= 0
         assert r.seconds["pass1"] > 0
     np.testing.assert_array_equal(results[0].pileup, results[1].pileup)
 
 
-def test_selection_guard_walks_the_host_pick(cohort, tmp_path, monkeypatch, caplog):
-    """A device pick that disagrees with the host's (forced) trips JAX's
-    guard: its line is logged and pass 2 walks again for the host's pick,
-    so the files are those of the run without the fault."""
-    _, fqs, _, _ = cohort
-    want = _port_run(cohort, fqs[:1], str(tmp_path / "ok"), monkeypatch)[1]
-    monkeypatch.setattr(tm, "pick_best_device",
-                        lambda tallies, glen2: torch.ones(1, dtype=torch.int64))
-    with caplog.at_level(logging.INFO, logger="bronko"):
-        res, got = _port_run(cohort, fqs[:1], str(tmp_path / "guard"), monkeypatch)
-    assert "selection guard tripped" in caplog.text
-    assert res[0].path == ("hist", "fused") and res[0].best == 0
-    assert got == want
-
-
 def test_no_positive_score_fails_alone(cohort, tmp_path, monkeypatch, caplog):
-    """A sample whose k-mers map nowhere fails alone in the fused resolve
+    """A sample whose k-mers map nowhere fails alone in its resolve
     ("Unable to pick a best genome"), as in JAX; the others' files equal
     JAX's."""
     _, fqs, junk, _ = cohort

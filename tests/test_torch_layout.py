@@ -131,15 +131,15 @@ def _jax_map(jd, kb, cb, mcfg):
 
 
 @pytest.mark.parametrize("case,path", [
-    ("ungrouped", ("hist", "subindex")), ("wide", ("hist", "fused")),
+    ("ungrouped", ("hist", "subindex")), ("wide", ("hist", "saved")),
     ("g9", ("words", "saved"))])
 def test_unsupported_layouts_are_named(tmp_path, case, path):
     """The layouts the port once refused map as bronko_tpu maps them:
     postings not grouped by genome (the sub-index pass 2), the int64
-    postings of a genome of 2^25 bp or more (the fused single enqueue),
-    and nine genomes (the multi-word histogram, pass 2 from the saved
-    probe); each carried across from the JAX arrays, through the engine's
-    own _map_one and, where it returns a pending sample, its resolve()."""
+    postings of a genome of 2^25 bp or more, and nine genomes (the
+    multi-word histogram), both with pass 2 from the saved probe; each
+    carried across from the JAX arrays, through the engine's own _map_one
+    and, where it returns a pending sample, its resolve()."""
     index = _panel(tmp_path, "g9" if case == "g9" else "g4_contigs")
     jd = jl.build_device_index(index)
     over = {"ungrouped": {"fid_grouped": False}, "wide": {"postings_local32": None},

@@ -111,10 +111,11 @@ def test_words_probe_matches_jax(tmp_path, name, G, words):
 
 def test_words_tally_without_the_saved_probe_holds_one_batch(tmp_path, monkeypatch):
     """A words sample past PROBE_BYTES_CAP takes pass 1 without the saved
-    probe (engine.run_pass1 -> tally(mode='words')): (b)'s start and h
-    of a batch are dropped once the next batch is probed, so at most one
-    batch's probe is alive while tally runs and none after it; tally_save
-    keeps every batch's. The mode names the index's own histogram."""
+    probe (the engine's pass 1 of a PendingMap part, engine._pass1 ->
+    tally(mode='words')): (b)'s start and h of a batch are dropped once
+    the next batch is probed, so at most one batch's probe is alive while
+    tally runs and none after it; tally_save keeps every batch's. The mode
+    names the index's own histogram."""
     from bronko_tpu_torch.call import engine
 
     files, jd, td = indexes(tmp_path, "g17")
@@ -131,16 +132,18 @@ def test_words_tally_without_the_saved_probe_holds_one_batch(tmp_path, monkeypat
         return start, h, lanes
 
     monkeypatch.setattr(tm, "probe_tally", tracked)
-    p1 = engine.run_pass1(batches, td, pcfg)
-    assert p1.path == ("words", "subindex") and len(alive_at_call) == nb
+    # one byte short of the sample's probe
+    monkeypatch.setattr(engine, "PROBE_BYTES_CAP",
+                        kb.size * len(pcfg.positions) * engine.probe_bytes_per_query(td) - 1)
+    p1_tallies, (_, p1_lanes, saved), _ = engine._pass1(batches, kb.size, td, pcfg, 0)
+    assert saved is None and len(alive_at_call) == nb
     assert max(alive_at_call) <= 2 and not any(r() for r in probes)
 
     probes.clear()
     alive_at_call.clear()
     tallies, lanes, saved = tm.tally_save(batches, td, pcfg)
     assert alive_at_call == [2 * i for i in range(nb)] and all(r() is not None for r in probes)
-    np.testing.assert_array_equal(p1.tallies, tallies.numpy())
-    np.testing.assert_array_equal(p1.lanes, lanes.numpy())
+    assert torch.equal(p1_tallies, tallies) and torch.equal(p1_lanes, lanes)
     with pytest.raises(ValueError, match="histogram"):
         tm.tally(batches, td, pcfg, "hist")
 

@@ -103,7 +103,7 @@ def test_count_splits_into_its_parts(synth, tmp_path, monkeypatch, path):
     env = {"BRONKO_NO_STREAM": "1"} if path == "classic" else {"BRONKO_STREAM": "1"}
     (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
     s = r.seconds
-    assert r.path[1] == ("streamed" if path == "streamed" else "fused")
+    assert r.path[1] == ("streamed" if path == "streamed" else "saved")
     parts = _inline(s) + s["text_wait"] + s["parse"] + s["finalize"] + s["dispatch"]
     assert s["count"] >= parts
     if path == "classic":

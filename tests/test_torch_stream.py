@@ -76,11 +76,9 @@ def data(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def gate(tmp_path, monkeypatch):
-    """No calibration file and a fixed round trip in either package; no
+    """No calibration file and a fixed round trip for JAX's gate; no
     stream variable set."""
-    for mod in (te, je):
-        monkeypatch.setattr(mod, "_STREAM_CALIB_PATH", str(tmp_path / f"{mod.__name__}.json"))
-    monkeypatch.setattr(te, "_DISPATCH_LAT", {"cpu": 0.001})
+    monkeypatch.setattr(je, "_STREAM_CALIB_PATH", str(tmp_path / "jax_calib.json"))
     monkeypatch.setattr(je, "_DISPATCH_LAT", [0.001])
     for var in STREAM_ENV:
         monkeypatch.delenv(var, raising=False)
@@ -261,10 +259,8 @@ def test_streamed_run_call_matches_jax_and_classic(data, tmp_path, monkeypatch, 
     _, want = _jax_run(data, name, tmp_path / "jax", monkeypatch, {"BRONKO_STREAM": "1"})
     assert _streamed(caplog) == 1
     mode = "words" if name == "words" else "hist"
-    # the classic path: fused on the single histogram word, pass 1 then
-    # pass 2 from the saved probe on the multi-word one
-    classic_path = (mode, "fused" if mode == "hist" else "saved")
-    assert (res.path, cls.path) == ((mode, "streamed"), classic_path)
+    # the classic path: pass 1, then pass 2 from the saved probe
+    assert (res.path, cls.path) == ((mode, "streamed"), (mode, "saved"))
     assert len(got) == 3 and got == classic == want
     assert res.best == cls.best == (4 if name == "words" else 0)
     np.testing.assert_array_equal(res.tallies, cls.tallies)
@@ -377,4 +373,4 @@ def test_failing_file_as_the_streamed_sample(data, tmp_path, monkeypatch, caplog
     else:
         assert [r.summary.filename for r in got[0]] == [data.fq]
         assert len(want[0]) == 1 and got[1] == want[1] and "samp.vcf" in got[1]
-        assert got[0][0].path == ("hist", "fused")
+        assert got[0][0].path == ("hist", "saved")
