@@ -23,7 +23,8 @@ goes through:
 Each sample's SampleResult.counts holds what it mapped: its kept k-mer
 rows, its device batches and the index's histogram words a row; and how
 it was counted: `piped`, its mates the native counter counted while they
-inflated (io/native.py), 0, 1 or 2.
+inflated (io/native.py), and `device_counted`, its mates counted on the
+card (call/device_count.py), each 0, 1 or 2.
 
 On one device a PendingMap holds steps 3-5 of a sample: pass 1 enqueued
 over its parts (one for a classic sample, one a partition for a
@@ -50,25 +51,33 @@ alignment keep the input order. `process_sample` is
 the same pieces for one sample, in series.
 
 The streamed path (JAX engine.py:1059-1374): a lone sample, or a
-cohort's first, may count into pass 1 instead. The native counter then
-finalizes one key-range partition at a time (io/native.py:
-native_count_fastq_stream), and each partition is uploaded from
-page-locked memory and its pass 1 enqueued while the host sorts the
-next; each partition is a part of the sample's PendingMap, resolved on
-the main thread. `_can_stream` streams every sample that can: not under
-a mesh, --keep-kmer-info or the device counter, on an index with a
-histogram and postings grouped by genome, with the native library
-loaded, unless BRONKO_NO_STREAM=1 or BRONKO_STREAM=0; BRONKO_STREAM_FIRST
-sets a cohort's first sample. The sample's path is (mode, 'streamed');
-its `count` stage runs until pass 1's copy is enqueued after the last
-partition, `h2d` is 0 and `pass1` is the wait for the tallies on the
-host.
+cohort's first, may count into pass 1 instead. Under --counter auto on a
+card each mate is counted there (call/device_count.py: its text read and
+inflated on the host into page-locked blocks, mate 2 beside mate 1 on a
+helper thread, then copied to the card; the text pack, a sort, the cap
+and the floor on the card), and its kept k-mers go into pass 1
+straight from the card, in batches, as one part. Otherwise, and for a
+mate the card does not take, the native counter finalizes one key-range
+partition at a time (io/native.py: native_count_fastq_stream), and each
+partition is uploaded from page-locked memory and its pass 1 enqueued
+while the host sorts the next. Each part belongs to the sample's
+PendingMap, resolved on the main thread. `_can_stream` streams every sample that
+can: not under a mesh, --keep-kmer-info or the device counter, on an
+index with a histogram and postings grouped by genome, with the native
+library loaded, unless BRONKO_NO_STREAM=1 or BRONKO_STREAM=0;
+BRONKO_STREAM_FIRST sets a cohort's first sample. The sample's path is
+(mode, 'streamed'); its `count` stage runs until pass 1's copy is
+enqueued after the last part, `h2d` is 0 and `pass1` is the wait
+for the tallies on the host.
 
 Every stage is timed by a span (utils/spans.py): its wall seconds add
 into the sample's SampleResult.seconds, and under torch.profiler it is a
 `bronko.<name>` range on the thread that ran it. Beside the six STAGES,
 the seconds hold SPAN_KEYS, the parts of `count` (io/native.py: inflate,
-parse, finalize, text_wait; `dispatch`, the streamed path's uploads and
+parse, finalize, text_wait; for a mate counted on the card,
+call/device_count.py: the read and inflate into page-locked blocks in
+inflate, the copy to the card and the text pack in parse, the sort, cap
+and floor in finalize; `dispatch`, the streamed path's uploads and
 pass-1 enqueues), the main thread's wait for the sample's count
 (`count_wait`), so that count ~ inflate - inflate_ahead + text_wait +
 parse + finalize + dispatch, and the parts of `call` (`noise`, the noise
@@ -104,6 +113,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from bronko_tpu_torch.call import device_count
 from bronko_tpu_torch.call.noise import baseline_noise
 from bronko_tpu_torch.call.outputs import (
     SampleSummary, write_alignments, write_overview, write_pileup, write_vcf,
@@ -160,7 +170,8 @@ class SampleResult:
     seconds: dict[str, float]    # wall seconds by STAGES, then by SPAN_KEYS
     counts: dict[str, int]       # rows (kept k-mers mapped), batches (device batches),
     #                              words (histogram words a row; 0 without one),
-    #                              piped (mates counted while they inflated)
+    #                              piped (mates counted while they inflated),
+    #                              device_counted (mates counted on the card)
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex' or
     #                              'streamed')
 
@@ -591,7 +602,7 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
     mapped_counts = {**map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev),
-                     "piped": counted.piped}
+                     "piped": counted.piped, "device_counted": 0}
     with span(map_range(mapped_counts)):
         seconds: dict[str, float] = {}
         device = dev.device if mapper is None else mapper.device
@@ -746,35 +757,22 @@ def _streams_first(cfg: CallConfig, dev: DeviceIndex, mapper, n_jobs: int) -> bo
     return _can_stream(cfg, dev, mapper)
 
 
-def _upload_async(kmers: np.ndarray, counts: np.ndarray, batch_size: int,
-                  device: torch.device):
-    """to_batches through page-locked host memory: on a CUDA device both
-    copies are enqueued on the current stream and the host goes on at
-    once (a copy from pageable memory waits for the card); on the CPU,
-    to_batches."""
-    if device.type != "cuda":
-        return to_batches(kmers, counts, batch_size, device)
-    km = torch.empty(kmers.shape[0], dtype=torch.int64, pin_memory=True)
-    ct = torch.empty(kmers.shape[0], dtype=torch.int32, pin_memory=True)
-    km.numpy()[:] = kmers.view(np.int64)
-    ct.numpy()[:] = counts
-    km, ct = km.to(device, non_blocking=True), ct.to(device, non_blocking=True)
-    return list(zip(km.split(batch_size), ct.split(batch_size)))
-
-
 def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: CallConfig,
                   threads: int) -> PendingMap:
-    """Streamed count -> tally (JAX engine.py:1137-1208): the native counter
-    finalizes one key-range partition at a time; each partition is
-    uploaded, cut into batches of cfg.batch_size and its pass 1 enqueued
-    (_pass1) on the device while the host sorts the next, a part of the
-    returned PendingMap; pass 1's copy is enqueued after the last. No host
-    sync happens here: resolve() makes the sample's one. Partitions cover
-    disjoint key ranges and tallies are sums, so the result is the classic
-    path's. The count's parts go into the sample's seconds (io/native.py),
-    each partition's upload and enqueue and the copy's into `dispatch`."""
+    """Streamed count -> tally (JAX engine.py:1137-1208): each mate counted
+    on the card where device_count.usable says so (its kept k-mers one
+    part, already there), else by the native counter one key-range
+    partition at a time (each uploaded while the host sorts the next);
+    each part is cut into batches of cfg.batch_size and its pass 1
+    enqueued (_pass1), a part of the returned PendingMap; pass 1's copy is
+    enqueued after the last. Beyond the card's count (a few small copies a
+    mate) no host sync happens here: resolve() makes the sample's one.
+    Parts cover disjoint key ranges or mates and tallies are sums, so the
+    result is the classic path's. The count's parts go into the sample's
+    seconds (io/native.py, call/device_count.py), each part's upload and
+    enqueue and the copy's into `dispatch`."""
     seconds = {"h2d": 0.0}
-    counters = {"piped": 0}
+    counters = {"piped": 0, "device_counted": 0}
     with span("count", seconds) as count_span:
         device = dev.device
         mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
@@ -782,9 +780,11 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         parts = []
         totals = dict.fromkeys((f.name for f in fields(CountStats)), 0)
         n_kmers = probe_bytes = 0
-        for kmers, counts, stats in native.native_count_fastq_stream(
-                paths, index.k, cfg.min_kmers, KMER_COUNT_CAP, threads=threads,
-                seconds=seconds, counters=counters):
+        count = (device_count.count_mates if device_count.usable(cfg, device)
+                 else device_count.host_parts)
+        for kmers, counts, stats in count(paths, index.k, cfg.min_kmers, KMER_COUNT_CAP,
+                                          device, threads=threads, seconds=seconds,
+                                          counters=counters):
             if stats is not None:
                 for f in totals:
                     totals[f] += stats[f]
@@ -792,7 +792,7 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
                 continue
             with span("stream.dispatch", seconds, "dispatch"):
                 n_kmers += kmers.shape[0]
-                batches = _upload_async(kmers, counts, cfg.batch_size, device)
+                batches = list(zip(kmers.split(cfg.batch_size), counts.split(cfg.batch_size)))
                 tallies, part, probe_bytes = _pass1(batches, kmers.shape[0], dev, mcfg,
                                                     probe_bytes)
                 acc += tallies
@@ -800,8 +800,9 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
         with span("stream.dispatch", seconds, "dispatch"):
             copy = _copy_pass1(acc, parts)
     cstats = CountStats(**totals)
-    log.info("%d reads counted from %s (streamed), %d mate(s) while they inflated",
-             cstats.total_reads, paths[0], counters["piped"])
+    log.info("%d reads counted from %s (streamed), %d mate(s) while they inflated, "
+             "%d on the card", cstats.total_reads, paths[0], counters["piped"],
+             counters["device_counted"])
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs); dispatched in %.2fs",

@@ -1,6 +1,8 @@
-// Hopper kernel for the device k-mer counter's first stage, with a plain C
+// Hopper kernels for the device k-mer counters' first stage, with a plain C
 // launch interface, wrapped by bronko_tpu_torch/ops/count.py and built
-// and loaded with the port's other kernels by ops/cuda_lib.py.
+// and loaded with the port's other kernels by ops/cuda_lib.py: K3 (the
+// device counter's pack of read rows) and the text pack (a streamed lone
+// sample's mate, from its FASTQ text; below K3).
 //
 // K3 pack_windows replaces bronko_tpu/ops/pallas_pack.py
 //   pack_windows_pallas / _pack_kernel: every k-window of every read,
@@ -276,6 +278,186 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The text pack: fastq_lines_kernel, then fastq_pack_kernel twice (count,
+// then write). It replaces no TPU kernel: the JAX package counts a lone
+// sample on the host (or parses rows for K3 there); this pack lets the
+// card count a mate straight from its inflated FASTQ text, so the host
+// keeps only the read and inflate (call/device_count.py). It emits the
+// 2-bit word of every window that the native counter's parse_count and
+// count_seq count, in text order:
+//
+// - lines are cut at '\n'; line 4r is record r's header, which has to
+//   start with '@' wherever it starts inside the text (else the text is
+//   malformed); line 4r+1 its sequence. Record r is kept when the newline
+//   ending its line 4r+2 exists (the quality's own newline is optional at
+//   the end), so with N newlines in all the reads are (N + 1) / 4;
+// - a window is k consecutive bytes of a kept sequence line, each of
+//   ACGTacgt (any other byte, '\r' included, breaks it; so a window never
+//   crosses a newline), packed first base highest.
+//
+// What bounds it is device memory: the text is read three times (the
+// lines pass, the count pass, the write pass) and each window writes 8
+// bytes. Everything else a block does lives in shared memory: a block
+// stages a tile of kTextTile bytes and 32 of halo once, builds K3's 2-bit
+// and invalid planes from it (plus a newline plane), finds each byte's
+// line from the tile's newline count before it (an inclusive sum of the
+// lines pass over the tiles, on the device) and its own newlines before
+// the byte, and ballots each 32 windows' validity into one word. The
+// count pass sums those words a tile; the write pass scans them, so a
+// warp stores its 32 windows' valid words to consecutive addresses.
+
+constexpr int kTextTile = 8192;              // text bytes a block: 32 a thread
+constexpr int kTextWords = kTextTile / 32;   // 32-byte plane words a tile
+constexpr int kTextHalo = 32;                // bytes past the tile: a window's k-1, the '@' after a newline
+static_assert(kTextWords == kThreads, "one plane word a thread in the scans");
+
+__device__ __forceinline__ uint32_t base_code(uint32_t b) {
+  const uint32_t u = b | 0x20u;  // ACGT to acgt; nothing else becomes them
+  return u == 'a' ? 0u : u == 'c' ? 1u : u == 'g' ? 2u : u == 't' ? 3u : 4u;
+}
+
+// Exclusive prefix sum of one value a thread over the block, in thread
+// order; `sums` holds a value a warp and is free again after the next
+// __syncthreads().
+__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v, uint32_t* sums) {
+  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(~0u, x, o);
+    if (lane >= (uint32_t)o) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  uint32_t before = 0;
+  for (uint32_t w = 0; w < warp; ++w) before += sums[w];
+  return before + x - v;
+}
+
+// The sum of one value a thread over the block, for thread 0.
+__device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* sums) {
+  v = __reduce_add_sync(~0u, v);
+  if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint32_t total = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kThreads / 32; ++w) total += sums[w];
+  return total;
+}
+
+// '\n' bytes of each tile of the text into nl_count[tile].
+__global__ void __launch_bounds__(kThreads)
+    fastq_lines_kernel(const uint8_t* __restrict__ text, int64_t S, bool aligned,
+                       int32_t* __restrict__ nl_count) {
+  __shared__ uint32_t sums[kThreads / 32];
+  const int64_t g = (int64_t)blockIdx.x * kTextTile + 32 * threadIdx.x;
+  uint32_t cnt = 0;
+  if (aligned && g + 32 <= S) {
+    const uint4* v = reinterpret_cast<const uint4*>(text + g);
+    const uint4 a = v[0], b = v[1];
+    const uint32_t nl = 0x0a0a0a0au;
+    cnt = (__popc(__vcmpeq4(a.x, nl)) + __popc(__vcmpeq4(a.y, nl)) +
+           __popc(__vcmpeq4(a.z, nl)) + __popc(__vcmpeq4(a.w, nl)) +
+           __popc(__vcmpeq4(b.x, nl)) + __popc(__vcmpeq4(b.y, nl)) +
+           __popc(__vcmpeq4(b.z, nl)) + __popc(__vcmpeq4(b.w, nl))) >> 3;
+  } else {
+    for (int i = 0; i < 32; ++i) cnt += g + i < S && text[g + i] == '\n';
+  }
+  const uint32_t total = block_sum(cnt, sums);
+  if (threadIdx.x == 0) nl_count[blockIdx.x] = (int32_t)total;
+}
+
+// Count pass (kWrite false): the tile's windows into win_count[tile], and
+// 1 into *malformed where a record's header does not start with '@'.
+// Write pass: each window's word at its place in text order, from the
+// inclusive sums of the count pass (win_incl). nl_incl holds the
+// inclusive sums of fastq_lines_kernel's counts.
+template <bool kWrite>
+__global__ void __launch_bounds__(kThreads)
+    fastq_pack_kernel(const uint8_t* __restrict__ text, int64_t S, bool aligned, int k,
+                      const int64_t* __restrict__ nl_incl,
+                      const int64_t* __restrict__ win_incl,
+                      int32_t* __restrict__ win_count, int32_t* __restrict__ malformed,
+                      uint64_t* __restrict__ words) {
+  __shared__ __align__(16) uint8_t sc[kTextTile + kTextHalo];
+  __shared__ uint64_t plane[kTextWords + 1];
+  __shared__ uint32_t bad[kTextWords + 1];
+  __shared__ uint32_t nlm[kTextWords];     // newline plane
+  __shared__ uint32_t lines[kTextWords];   // the tile's newlines before word u
+  __shared__ uint32_t vm[kTextWords];      // valid windows from word u's 32 bytes
+  __shared__ uint32_t outs[kTextWords];    // the tile's valid windows before word u
+  __shared__ uint32_t sums[kThreads / 32];
+
+  const int64_t t0 = (int64_t)blockIdx.x * kTextTile;
+  for (uint32_t i = threadIdx.x; i < (kTextTile + kTextHalo) / 16; i += kThreads) {
+    const int64_t g = t0 + 16 * i;
+    if (aligned && g + 16 <= S) {
+      *reinterpret_cast<uint4*>(sc + 16 * i) = *reinterpret_cast<const uint4*>(text + g);
+    } else {
+      for (int j = 0; j < 16; ++j) sc[16 * i + j] = g + j < S ? text[g + j] : 0;
+    }
+  }
+  __syncthreads();
+
+  // the planes: a warp takes 32 bytes a step; bytes past S are 0, which
+  // is no base and no newline
+  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (uint32_t u = warp; u <= kTextWords; u += kThreads / 32) {
+    const uint32_t b = sc[32 * u + lane];
+    const uint32_t c = base_code(b);
+    const uint32_t part = (c & 3u) << (30 - 2 * (lane & 15));
+    const uint32_t hi = __reduce_or_sync(~0u, lane < 16 ? part : 0u);
+    const uint32_t lo = __reduce_or_sync(~0u, lane < 16 ? 0u : part);
+    const uint32_t bb = __ballot_sync(~0u, c >= 4u);
+    const uint32_t nn = __ballot_sync(~0u, b == '\n');
+    if (lane == 0) {
+      plane[u] = (uint64_t)hi << 32 | lo;
+      bad[u] = bb;
+      if (u < kTextWords) nlm[u] = nn;
+    }
+  }
+  __syncthreads();
+  lines[threadIdx.x] = block_exclusive_sum(__popc(nlm[threadIdx.x]), sums);
+  __syncthreads();
+
+  const int64_t nl_before = blockIdx.x ? nl_incl[blockIdx.x - 1] : 0;
+  const int64_t reads = (nl_incl[gridDim.x - 1] + 1) / 4;
+  const uint32_t mask = (1u << k) - 1;
+  const uint32_t below = (1u << lane) - 1;  // the lanes before this one
+  uint32_t found = 0;
+  for (uint32_t u = warp; u < kTextWords; u += kThreads / 32) {
+    const uint32_t f = 32 * u + lane;
+    const uint32_t m = nlm[u];
+    // the line of byte f: every newline before it ends one
+    const int64_t line = nl_before + lines[u] + __popc(m & below);
+    const bool ok = !window_bad(bad, f, mask) && (line & 3) == 1 && (line >> 2) < reads;
+    const uint32_t v = __ballot_sync(~0u, ok);
+    if (lane == 0) vm[u] = v;
+    found += __popc(v);
+    // a newline ending line 4r - 1 starts record r, if any byte follows
+    if (!kWrite && ((m >> lane) & 1) && ((line + 1) & 3) == 0 && t0 + f + 1 < S &&
+        sc[f + 1] != '@')
+      *malformed = 1;
+  }
+  if (!kWrite) {
+    if (blockIdx.x == 0 && threadIdx.x == 0 && sc[0] != '@') *malformed = 1;
+    const uint32_t total = block_sum(lane == 0 ? found : 0u, sums);
+    if (threadIdx.x == 0) win_count[blockIdx.x] = (int32_t)total;
+    return;
+  }
+  __syncthreads();
+  outs[threadIdx.x] = block_exclusive_sum(__popc(vm[threadIdx.x]), sums);
+  __syncthreads();
+  uint64_t* out = words + (blockIdx.x ? win_incl[blockIdx.x - 1] : 0);
+  for (uint32_t u = warp; u < kTextWords; u += kThreads / 32) {
+    const uint32_t v = vm[u];
+    if ((v >> lane) & 1)
+      out[outs[u] + __popc(v & below)] = window_word(plane, 32 * u + lane, k);
+  }
+}
+
 }  // namespace
 
 // Selects `device` (this library links its own CUDA runtime, whose
@@ -310,6 +492,47 @@ extern "C" int bronko_pack_windows(int device, const uint8_t* codes,
     pack_windows_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
         codes, lengths, R, L, W, k, rt, col_tiles,
         reinterpret_cast<uint64_t*>(words), valid);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The text pack's launches. Each selects `device`, launches on `stream`,
+// never synchronises and returns the CUDA error code. text is S bytes at
+// any address (tiles of it start 16-byte aligned only when it does);
+// nl_count, win_count, nl_incl and win_incl hold ceil(S / 8192) entries.
+// bronko_fastq_pack counts (win_incl null: win_count and malformed, which
+// the caller zeroed) or writes (words, of win_incl's last entry).
+extern "C" int bronko_fastq_lines(int device, const uint8_t* text, int64_t S,
+                                  int32_t* nl_count, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (S < 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (S + kTextTile - 1) / kTextTile;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (tiles > 0)
+    fastq_lines_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(
+        text, S, ((uintptr_t)text & 15) == 0, nl_count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bronko_fastq_pack(int device, const uint8_t* text, int64_t S, int k,
+                                 const int64_t* nl_incl, const int64_t* win_incl,
+                                 int32_t* win_count, int32_t* malformed, int64_t* words,
+                                 cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 31 || S < 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (S + kTextTile - 1) / kTextTile;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)text & 15) == 0;
+  if (tiles > 0) {
+    if (win_incl == nullptr)
+      fastq_pack_kernel<false><<<(unsigned)tiles, kThreads, 0, stream>>>(
+          text, S, aligned, k, nl_incl, nullptr, win_count, malformed, nullptr);
+    else
+      fastq_pack_kernel<true><<<(unsigned)tiles, kThreads, 0, stream>>>(
+          text, S, aligned, k, nl_incl, win_incl, nullptr, nullptr,
+          reinterpret_cast<uint64_t*>(words));
   }
   return (int)cudaGetLastError();
 }

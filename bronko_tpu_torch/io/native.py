@@ -34,7 +34,14 @@ next mate's prefetch). Each file counted while it inflated adds 1 to
 `counters["piped"]`.
 
 `native_count_fastq_stream` yields a sample's counted k-mers one key-range
-partition at a time, for the engine's streamed single-sample path.
+partition at a time, for the engine's streamed single-sample path where
+the host counts. Where the card counts a streamed sample's mate
+(call/device_count.py), the host only reads and inflates it, a block at
+a time into page-locked memory, through `TextReader` (the pipelined
+front end's reader, handing out the text unparsed); `whole_buf_size`
+says whether the file fits the whole-buffer cap. The spans keep their
+keys there: `inflate` is the read and inflate, `parse` the copy to the
+card and the text pack, and `finalize` the card's sort, cap and floor.
 """
 
 from __future__ import annotations
@@ -140,6 +147,14 @@ def get_lib():
         lib.bronko_counter_pipes.argtypes = [ctypes.c_char_p]
         lib.bronko_counter_inflate_seconds.restype = ctypes.c_double
         lib.bronko_counter_inflate_seconds.argtypes = [ctypes.c_void_p]
+        lib.bronko_whole_buf_size.restype = ctypes.c_int64
+        lib.bronko_whole_buf_size.argtypes = [ctypes.c_char_p]
+        lib.bronko_gz_open.restype = ctypes.c_void_p
+        lib.bronko_gz_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        lib.bronko_gz_read.restype = ctypes.c_int64
+        lib.bronko_gz_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.bronko_gz_close.restype = None
+        lib.bronko_gz_close.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -189,7 +204,7 @@ def native_read_inflate(path: str, on_close=None) -> InflatedText:
                         seconds=time.perf_counter() - t0)
 
 
-def _add_inflate(seconds: dict | None, s: float, ahead: bool) -> None:
+def add_inflate(seconds: dict | None, s: float, ahead: bool) -> None:
     """Charge s seconds of read and inflate to the counting sample's
     seconds; `ahead`: another thread ran them."""
     if seconds is not None:
@@ -254,7 +269,7 @@ def _count_into(lib, h, path: str, text: InflatedText | None) -> bool:
 def _add_piped(lib, h, seconds: dict | None, counters: dict | None) -> None:
     """Charge a file counted from its path: its read and inflate ran on
     the counter's reader thread, beside the parse."""
-    _add_inflate(seconds, float(lib.bronko_counter_inflate_seconds(h)), True)
+    add_inflate(seconds, float(lib.bronko_counter_inflate_seconds(h)), True)
     if counters is not None:
         counters["piped"] = counters.get("piped", 0) + 1
 
@@ -286,7 +301,7 @@ def native_count_fastq(path: str, k: int, min_count: int, count_cap: int,
     if text is None:
         text = _text_unless_piped(path)
     if text is not None:
-        _add_inflate(seconds, text.seconds, ahead)
+        add_inflate(seconds, text.seconds, ahead)
     h = None
     try:
         with span("count.parse", seconds, "parse"):
@@ -348,7 +363,7 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                     next_tf = (pool.submit(native_read_inflate, paths[i + 1])
                                if i + 1 < len(paths) else None)
                 if text is not None:
-                    _add_inflate(seconds, text.seconds, i > 0)
+                    add_inflate(seconds, text.seconds, i > 0)
                 h = None
                 try:
                     with span("count.parse", seconds, "parse"):
@@ -380,6 +395,47 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                     next_tf.result().close()
                 except Exception:  # noqa: BLE001 — the prefetch itself failed
                     pass
+
+
+def whole_buf_size(path: str) -> int:
+    """The byte size of a file within the whole-buffer cap for its kind
+    (compressed or not; BRONKO_WHOLEBUF_MAX overrides both), -1 past it,
+    -2 when it cannot be opened."""
+    return int(get_lib().bronko_whole_buf_size(path.encode()))
+
+
+class TextReader:
+    """One file's text a block at a time (native/kmer_count.cpp GzStream):
+    gzip inflated with zlib, as the pipelined front end reads it, with
+    read_inflate's acceptance; any other file as it is. A context
+    manager; raises OSError when the file cannot be opened and ValueError
+    when zlib does not start."""
+
+    def __init__(self, path: str):
+        lib = get_lib()
+        err = ctypes.c_int()
+        self._h = lib.bronko_gz_open(path.encode(), ctypes.byref(err))
+        if not self._h:
+            if err.value == -1:
+                raise OSError(f"cannot open {path}")
+            raise ValueError(f"cannot inflate {path}")
+
+    def read_into(self, address: int, cap: int) -> int:
+        """Up to cap (> 0) bytes of text at `address` (the C call releases
+        the GIL): how many, 0 at the end, -2 on a corrupt or truncated gzip
+        member or a read error."""
+        return int(get_lib().bronko_gz_read(self._h, address, cap))
+
+    def close(self) -> None:
+        if self._h:
+            get_lib().bronko_gz_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def native_read_fastq_chunks(path: str, chunk_reads: int, max_len: int = 512):

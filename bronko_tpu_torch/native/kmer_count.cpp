@@ -677,22 +677,129 @@ int count_wholebuf(Counter* c, const char* path, size_t fsize) {
   return count_text(c, text.data(), text.size());
 }
 
+// ---------- the streamed read and inflate ----------
+//
+// One file read and, if it is gzip, inflated with zlib a buffer at a time
+// into whatever memory the caller hands over: the pipelined front end's
+// blocks, and (bronko_gz_open / bronko_gz_read) the engine's page-locked
+// blocks bound for the card. Acceptance is read_inflate's: every gzip
+// member is read; after at least one, trailing bytes without gzip magic
+// end the stream; a truncated or corrupt member fails it. A file that is
+// not gzip is its own text.
+
+constexpr size_t kInBytes = 1 << 20;  // compressed bytes a read
+
+struct GzStream {
+  FILE* f = nullptr;
+  bool gz = false, zs_live = false, in_eof = false, ended = false, failed = false;
+  // whether the member being inflated starts with gzip magic (the first
+  // does): only such a member's failure fails the stream
+  bool member_real = true;
+  size_t produced = 0;
+  z_stream zs{};
+  std::unique_ptr<unsigned char[]> in;
+  unsigned char magic[2] = {0, 0};
+  size_t head = 0, head_out = 0;  // plain text: its first bytes, read and handed out
+
+  ~GzStream() { close(); }
+
+  // 0; -1 when the file cannot be opened, -2 when zlib does not start
+  int open(const char* path) {
+    f = fopen(path, "rb");
+    if (!f) return -1;
+    head = fread(magic, 1, 2, f);
+    gz = head == 2 && magic[0] == 0x1f && magic[1] == 0x8b;
+    if (!gz) return 0;
+    in.reset(new unsigned char[kInBytes]);
+    memcpy(in.get(), magic, 2);
+    zs.next_in = in.get();
+    zs.avail_in = 2;
+    if (inflateInit2(&zs, 16 + MAX_WBITS) != Z_OK) return -2;
+    zs_live = true;
+    return 0;
+  }
+
+  // keep what inflate has not consumed, then fill the rest of `in`
+  void refill() {
+    memmove(in.get(), zs.next_in, zs.avail_in);
+    const size_t want = kInBytes - zs.avail_in;
+    const size_t got = fread(in.get() + zs.avail_in, 1, want, f);
+    in_eof = got < want;
+    zs.next_in = in.get();
+    zs.avail_in += (uInt)got;
+  }
+
+  // Up to cap (> 0) bytes of text into dst: how many, 0 at the end of the
+  // stream, -2 on a corrupt or truncated member or a read error.
+  int64_t read(char* dst, size_t cap) {
+    if (failed) return -2;
+    if (ended) return 0;
+    size_t n = 0;
+    if (!gz) {
+      while (head_out < head && n < cap) dst[n++] = (char)magic[head_out++];
+      // a file of fewer than 2 bytes is those bytes
+      while (head == 2 && n < cap) {
+        const size_t got = fread(dst + n, 1, cap - n, f);
+        if (got == 0) break;
+        n += got;
+      }
+      if (n < cap) ended = true;
+    } else {
+      while (n < cap) {
+        if (zs.avail_in == 0 && !in_eof) refill();
+        zs.next_out = (Bytef*)(dst + n);
+        zs.avail_out = (uInt)std::min<size_t>(cap - n, 1u << 30);
+        const int r = inflate(&zs, Z_NO_FLUSH);
+        const size_t got = (size_t)((char*)zs.next_out - (dst + n));
+        n += got;
+        produced += got;
+        if (r == Z_STREAM_END) {
+          if (zs.avail_in < 2 && !in_eof) refill();
+          if (zs.avail_in == 0) {  // the last member ended the file
+            ended = true;
+            break;
+          }
+          member_real = zs.avail_in >= 2 && zs.next_in[0] == 0x1f &&
+                        zs.next_in[1] == 0x8b;
+          if (inflateReset2(&zs, 16 + MAX_WBITS) != Z_OK) {
+            ended = true;
+            break;
+          }
+          continue;
+        }
+        // a data error, or the input ran out mid-member (Z_BUF_ERROR):
+        // tolerated only as trailing garbage after a decoded member
+        if (r != Z_OK) {
+          failed = produced == 0 || member_real;
+          ended = true;
+          break;
+        }
+      }
+    }
+    if (ended && ferror(f)) failed = true;
+    return failed ? -2 : (int64_t)n;
+  }
+
+  void close() {
+    if (zs_live) inflateEnd(&zs);
+    zs_live = false;
+    if (f) fclose(f);
+    f = nullptr;
+  }
+};
+
 // ---------- pipelined front end ----------
 //
-// The reader's only serial work is the read and inflate: it inflates with
-// zlib straight into a block and, once the block is full, cuts it after
-// the newline whose count since the block start (itself a record
+// The reader's only serial work is the read and inflate (GzStream): it
+// inflates straight into a block and, once the block is full, cuts it
+// after the newline whose count since the block start (itself a record
 // boundary) is a multiple of 4, hands the record-aligned part to the
 // workers, and carries the tail (less than a record) into the next
 // block. The workers run the same parse_count the whole-buffer path uses.
-// Acceptance is read_inflate's: every gzip member is read; after at least
-// one, trailing bytes without gzip magic end the stream; a truncated or
-// corrupt member fails the count.
 
 // 1 MB blocks: the last block still parses after the inflate has ended,
 // ~13 ms on one worker at ~75 MB/s of FASTQ text
 constexpr size_t kBlockBytes = 1 << 20;
-constexpr size_t kInBytes = 1 << 20;  // compressed bytes a read
 
 // '\n' bytes in [p, p + n): the reader's one pass over its text, 16
 // bytes a step where SSE2 is there
@@ -718,8 +825,9 @@ size_t count_newlines(const char* p, size_t n) {
 }
 
 int count_pipelined(Counter* c, const char* path) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return -1;
+  GzStream gs;
+  const int opened = gs.open(path);
+  if (opened == -1) return -1;
   using Clock = std::chrono::steady_clock;
   const Clock::time_point t0 = Clock::now();
   double waited = 0;  // the reader's waits for room in the queue
@@ -815,71 +923,15 @@ int count_pipelined(Counter* c, const char* path) {
     scanned = blk.len;
   };
 
-  int rc = 0;
-  unsigned char magic[2] = {0, 0};
-  const size_t head = fread(magic, 1, 2, f);
-  if (head == 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
-    z_stream zs{};
-    std::unique_ptr<unsigned char[]> in(new unsigned char[kInBytes]);
-    memcpy(in.get(), magic, 2);
-    zs.next_in = in.get();
-    zs.avail_in = 2;
-    bool in_eof = false;
-    // keep what inflate has not consumed, then fill the rest of `in`
-    auto refill = [&]() {
-      memmove(in.get(), zs.next_in, zs.avail_in);
-      const size_t want = kInBytes - zs.avail_in;
-      const size_t got = fread(in.get() + zs.avail_in, 1, want, f);
-      in_eof = got < want;
-      zs.next_in = in.get();
-      zs.avail_in += (uInt)got;
-    };
-    if (inflateInit2(&zs, 16 + MAX_WBITS) != Z_OK) {
-      rc = -2;
-    } else {
-      size_t produced = 0;
-      // whether the member being inflated starts with gzip magic (the
-      // first does): only such a member's failure fails the count
-      bool member_real = true;
-      while (!malformed.load()) {
-        if (zs.avail_in == 0 && !in_eof) refill();
-        if (blk.len == blk.cap) cut_full();
-        zs.next_out = (Bytef*)(blk.data.get() + blk.len);
-        zs.avail_out = (uInt)std::min<size_t>(blk.cap - blk.len, 1u << 30);
-        const int r = inflate(&zs, Z_NO_FLUSH);
-        const size_t got = (size_t)((char*)zs.next_out - (blk.data.get() + blk.len));
-        blk.len += got;
-        produced += got;
-        if (r == Z_STREAM_END) {
-          if (zs.avail_in < 2 && !in_eof) refill();
-          if (zs.avail_in == 0) break;  // the last member ended the file
-          member_real = zs.avail_in >= 2 && zs.next_in[0] == 0x1f &&
-                        zs.next_in[1] == 0x8b;
-          if (inflateReset2(&zs, 16 + MAX_WBITS) != Z_OK) break;
-          continue;
-        }
-        // a data error, or the input ran out mid-member (Z_BUF_ERROR):
-        // tolerated only as trailing garbage after a decoded member
-        if (r != Z_OK) {
-          if (produced == 0 || member_real) rc = -2;
-          break;
-        }
-      }
-      inflateEnd(&zs);
-    }
-  } else {
-    // plain text (only past the cap): the read is the reader's work
-    blk.len = head;
-    memcpy(blk.data.get(), magic, head);
-    while (head == 2 && !malformed.load()) {
-      if (blk.len == blk.cap) cut_full();
-      const size_t got = fread(blk.data.get() + blk.len, 1, blk.cap - blk.len, f);
-      if (got == 0) break;
-      blk.len += got;
-    }
+  int rc = opened;  // 0, or -2 when zlib did not start
+  while (rc == 0 && !malformed.load()) {
+    if (blk.len == blk.cap) cut_full();
+    const int64_t got = gs.read(blk.data.get() + blk.len, blk.cap - blk.len);
+    if (got < 0) rc = -2;
+    if (got <= 0) break;
+    blk.len += (size_t)got;
   }
-  if (ferror(f)) rc = -2;
-  fclose(f);
+  gs.close();
   if (rc == 0 && blk.len && !malformed.load())
     push_block(std::move(blk));  // the last records (EOF truncation
                                  // semantics live in parse_count)
@@ -1082,6 +1134,32 @@ int bronko_counter_count_text(void* h, const void* text, int64_t size) {
   return count_text(static_cast<Counter*>(h),
                     static_cast<const char*>(text), (size_t)size);
 }
+
+// The byte size of a file that the whole-buffer front end would take,
+// -1 past the cap for its kind, -2 when it cannot be opened.
+int64_t bronko_whole_buf_size(const char* path) { return whole_buf_size(path); }
+
+// A file's text a buffer at a time (GzStream): a handle to read with
+// bronko_gz_read and free with bronko_gz_close, or NULL with *err -1
+// when the file cannot be opened or -2 when zlib does not start.
+void* bronko_gz_open(const char* path, int* err) {
+  auto* gs = new GzStream();
+  *err = gs->open(path);
+  if (*err != 0) {
+    delete gs;
+    return nullptr;
+  }
+  return gs;
+}
+
+// Up to cap (> 0) bytes of the text into dst: how many, 0 at its end, -2
+// on a corrupt or truncated gzip member or a read error.
+int64_t bronko_gz_read(void* h, void* dst, int64_t cap) {
+  if (cap <= 0) return -2;
+  return static_cast<GzStream*>(h)->read(static_cast<char*>(dst), (size_t)cap);
+}
+
+void bronko_gz_close(void* h) { delete static_cast<GzStream*>(h); }
 
 // Merge per-thread tables; apply ci floor and cs cap. Returns kept count,
 // all kParts partitions of merge_parts in order.

@@ -20,6 +20,13 @@ Per-chunk counts stay on the counter's device (int32) and are merged
 there at `finalize` in int64, capped after the sum, then floored; one
 copy brings the sample's k-mers back to the host, sorted ascending as
 the native counter's are.
+
+A streamed lone sample counts each mate on the card from its FASTQ text
+instead (call/device_count.py): the text pack (`fastq_pack`, kernels of
+`csrc/count_kernels.cu`; its plain version `fastq_pack_plain`) emits
+every window the native counter counts, then `count_words` sorts them
+with run lengths and applies the cap and the floor, as `finalize`; the
+kept k-mers and counts stay on the device.
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ from bronko_tpu_torch.ops.cuda_lib import (
     check_cuda, check_k, count_launch, library, raise_on, stream,
 )
 
-__all__ = ["CountStats", "KmerCounter", "extract_and_count_chunk",
-           "pack_windows", "pack_windows_plain"]
+__all__ = ["CountStats", "KmerCounter", "count_words", "extract_and_count_chunk",
+           "fastq_pack", "fastq_pack_plain", "pack_windows", "pack_windows_plain"]
 
+# text bytes a block of the text pack takes (kTextTile in csrc/count_kernels.cu)
+TEXT_TILE = 8192
 # windows one pack covers: a chunk with more is packed and sorted in row
 # slices (a default chunk of 150 bp reads has 36.7M; one of 10 kbp reads
 # on the Python parser 2.6e9, which would not fit a card)
@@ -155,3 +164,104 @@ class KmerCounter:
         self.stats.unique_kmers = int(uniq.numel())
         self.stats.unique_counted_kmers = int(keep.sum())
         return to_u64(uniq[keep]), sums[keep].cpu().numpy()
+
+
+def _text_codes(text: torch.Tensor) -> torch.Tensor:
+    """Each byte's base code: 0..3 for ACGT and acgt, 4 for any other."""
+    code = torch.full(text.shape, 4, dtype=torch.int64, device=text.device)
+    lower = text | 0x20
+    for c, b in enumerate(b"acgt"):
+        code[lower == b] = c
+    return code
+
+
+def fastq_pack_plain(text: torch.Tensor, k: int) -> tuple[torch.Tensor, int, bool]:
+    """(S,) uint8 FASTQ text -> (the int64 word of every window the native
+    counter counts, in text order; reads; whether the text is malformed).
+    Record r is lines 4r..4r+3; it is kept when the newline ending line
+    4r+2 exists, so N newlines keep (N + 1) // 4 reads; a window is k bytes
+    of ACGTacgt in a kept record's line 4r+1, first base highest; a header
+    that does not start with '@' makes the text malformed (the native
+    counter's parse_count and count_seq)."""
+    S = text.numel()
+    if S == 0:
+        return torch.empty(0, dtype=torch.int64, device=text.device), 0, False
+    nl = text == 10
+    n_lines = int(nl.sum())
+    reads = (n_lines + 1) // 4
+    line = torch.cumsum(nl, 0) - nl.to(torch.int64)  # the newlines before each byte
+    after = torch.nonzero(nl[:-1] & ((line[:-1] + 1) % 4 == 0)).squeeze(1) + 1
+    malformed = bool(text[0] != ord("@")) or bool((text[after] != ord("@")).any())
+    W = S - k + 1
+    if W <= 0:
+        return torch.empty(0, dtype=torch.int64, device=text.device), reads, malformed
+    code = _text_codes(text)
+    n_bad = torch.cat([torch.zeros(1, dtype=torch.int64, device=text.device),
+                       torch.cumsum(code >= 4, 0)])
+    words = torch.zeros(W, dtype=torch.int64, device=text.device)
+    for t in range(k):
+        words.bitwise_left_shift_(2).bitwise_or_(code[t:t + W] & 3)
+    start = line[:W]
+    valid = (n_bad[k:] == n_bad[:W]) & (start % 4 == 1) & (start // 4 < reads)
+    return words[valid], reads, malformed
+
+
+def _to_host_ints(t: torch.Tensor) -> list[int]:
+    """A small int64 device vector on the host: a copy to page-locked
+    memory behind an event, waited for (the only host sync it makes)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.tolist()
+
+
+def fastq_pack(text: torch.Tensor, k: int) -> tuple[torch.Tensor, int, bool]:
+    """The text pack: fastq_pack_plain's result, from the kernels of
+    csrc/count_kernels.cu for a contiguous CUDA uint8 text (the lines
+    pass, the count pass, then the write pass into words sized by the
+    count, which the host reads in one small copy)."""
+    if text.device.type == "cpu":
+        return fastq_pack_plain(text, k)
+    check_cuda(text, torch.uint8, "text")
+    check_k(k)
+    S = text.numel()
+    if S == 0:
+        return torch.empty(0, dtype=torch.int64, device=text.device), 0, False
+    lib, device, st = library(), text.device.index or 0, stream(text)
+    tiles = -(-S // TEXT_TILE)
+    nl = torch.empty(tiles, dtype=torch.int32, device=text.device)
+    raise_on(lib.bronko_fastq_lines(device, text.data_ptr(), S, nl.data_ptr(), st),
+             "fastq_lines")
+    count_launch("fastq_lines")
+    nl_incl = nl.cumsum(0, dtype=torch.int64)
+    win = torch.empty(tiles, dtype=torch.int32, device=text.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=text.device)
+    raise_on(lib.bronko_fastq_pack(device, text.data_ptr(), S, k, nl_incl.data_ptr(), None,
+                                   win.data_ptr(), flag.data_ptr(), None, st), "fastq_pack")
+    count_launch("fastq_pack")
+    win_incl = win.cumsum(0, dtype=torch.int64)
+    n_lines, n, malformed = _to_host_ints(
+        torch.cat([nl_incl[-1:], win_incl[-1:], flag.to(torch.int64)]))
+    words = torch.empty(n, dtype=torch.int64, device=text.device)
+    if n:
+        raise_on(lib.bronko_fastq_pack(device, text.data_ptr(), S, k, nl_incl.data_ptr(),
+                                       win_incl.data_ptr(), None, None, words.data_ptr(), st),
+                 "fastq_pack")
+        count_launch("fastq_pack")
+    return words, (n_lines + 1) // 4, bool(malformed)
+
+
+def count_words(words: torch.Tensor, reads: int, min_count: int,
+                count_cap: int = KMER_COUNT_CAP):
+    """Count the packed windows of one FASTQ text on their device (KMC -b
+    -ci -cs, as the native counter): one sort with run lengths
+    (torch.unique), the cap, then the floor. Returns (ascending int64
+    k-mers, their int32 counts), both on the device, and the CountStats
+    of `reads` reads."""
+    kmers, counts = torch.unique(words, sorted=True, return_counts=True)
+    counts.clamp_max_(count_cap)
+    keep = torch.nonzero(counts >= min_count).squeeze(1)
+    stats = CountStats(reads, words.numel(), kmers.numel(), keep.numel())
+    return kmers[keep], counts[keep].to(torch.int32), stats

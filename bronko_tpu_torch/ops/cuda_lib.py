@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bucket_queries": 0, "fold_table": 0, "pack_windows": 0, "gather": 0,
-            "probe_tally": 0, "walk_scatter": 0, "walk_hits": 0}
+            "probe_tally": 0, "walk_scatter": 0, "walk_hits": 0, "fastq_lines": 0,
+            "fastq_pack": 0}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -113,6 +114,8 @@ def library():
                 "bronko_bucket_queries": [i32, p, i64, i32, ctypes.c_uint32, i32, p, p, p, p],
                 "bronko_fold_table": [i32, p, p, i64, i32, p, p],
                 "bronko_pack_windows": [i32, p, p, i64, i64, i32, p, p, p],
+                "bronko_fastq_lines": [i32, p, i64, p, p],
+                "bronko_fastq_pack": [i32, p, i64, i32, p, p, p, p, p, p],
                 "bronko_gather": [i32, p, i64, p, i64, p, p],
                 "bronko_probe_tally": [i32, p, p, i64, i32, p, i64, p, i64, i64, i32, p, p,
                                        i32, i32, p, p, p, p, p],

@@ -103,6 +103,18 @@ Phases, one line each; any failure exits non-zero:
      their classic cohort; the gate's decision on the card with no
      variable set; warm totals of both paths in turns, medians (q1, q3)
      of max(N, 9) each;
+ 15b. card count: s0 cut into a pair of mates of ~150,000 reads (a
+     sars2-4ref.single sample's size; cached) through `call -1 -2
+     --pileup` on the card with no stream variable set, under --counter
+     auto (each mate counted on the card) and --counter host: both
+     ('hist', 'streamed'), device_counted 2 and 0, the text pack's
+     kernels launched 2 (fastq_lines) and 4 (fastq_pack) times by the
+     auto run alone, its tallies, genome, pileup and files equal the host
+     count's; then the text pack (ops/count.py::fastq_pack) against its
+     plain version on the same card tensor at a mpxv-16ref.single400k
+     mate's size (400,000 records of s0 and s1, ~126 MB), exact in words,
+     reads and malformed flag, timed with its bound (the text read once
+     and 8 bytes a window written);
  16. saved: the classic path with the saved probe (a one-part
      PendingMap: pass 1 and its copy enqueued with no host sync, then the
      host's pick and pass 2 from the probe), which every classic sample
@@ -204,6 +216,7 @@ FLAT_REPS = 3  # (d) and its plain version in turns at the 300-strain panel
 MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
 STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
+MPXV_MATE_READS = 400_000  # a mate of a mpxv-16ref.single400k sample
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -222,6 +235,10 @@ KERNELS = {  # name: (TPU kernel it replaces, source)
                      "bronko_tpu_torch/csrc/map_kernels.cu"),
     "walk_hits": ("bronko_tpu/ops/map.py:601",
                   "bronko_tpu_torch/csrc/map_kernels.cu"),
+    # the text pack takes the place of the host counter's parse, which
+    # the JAX package runs in C++ (a streamed lone sample on a card)
+    "fastq_pack": ("bronko_tpu/native/kmer_count.cpp:513",
+                   "bronko_tpu_torch/csrc/count_kernels.cu"),
 }
 
 
@@ -1631,6 +1648,97 @@ def phase_stream(db: str, panel_db: str, fastqs: list[str], work: str, ref, pane
     return launches
 
 
+def make_pair(fastq: str) -> list[str]:
+    """Sample s0 cut into two mates of half its reads each (~150,000, a
+    sars2-4ref.single mate), gzip level 1 as the benchmark's traffic
+    (cached in .smoke_cache/)."""
+    mates = [os.path.join(CACHE, f"pair_s0_{m}.fastq.gz") for m in (1, 2)]
+    if all(os.path.exists(m) for m in mates):
+        return mates
+    with gzip.open(fastq, "rb") as fh:
+        text = fh.read()
+    cut = first_records(text, text.count(b"\n") // 8)
+    for path, part in zip(mates, (text[:cut], text[cut:])):
+        with open(path + ".tmp", "wb") as fh:
+            fh.write(gzip.compress(part, 1))
+        os.replace(path + ".tmp", path)
+    return mates
+
+
+def first_records(text: bytes, n: int) -> int:
+    """The byte length of the first n 4-line FASTQ records of `text`."""
+    nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
+    if len(nl) < 4 * n:
+        fail("card count", f"{len(nl) // 4} records where {n} are needed")
+    return int(nl[4 * n - 1]) + 1
+
+
+def run_pair(db: str, mates: list[str], out: str, counter: str):
+    """`call -d db -1 mate1 -2 mate2 --pileup --counter counter` on the card."""
+    cfg = cli.call_config(cli.build_parser().parse_args(
+        ["call", "-d", db, "-1", mates[0], "-2", mates[1], "-o", out, "--pileup",
+         "--counter", counter]))
+    results = cli.run_call_cmd(cfg, device=None)
+    if len(results) != 1:
+        fail("card count", f"expected one sample result, got {len(results)}")
+    return results[0]
+
+
+def _pack_out(words: torch.Tensor, reads: int, malformed: bool):
+    """The text pack's result as tensors to compare: (words, [reads, malformed])."""
+    return words, torch.tensor([reads, int(malformed)])
+
+
+def phase_card_count(db: str, fastqs: list[str], work: str, smi: str):
+    """A lone pair streamed on the card under --counter auto, each mate
+    counted there, against --counter host (module docstring, 15b); then
+    the text pack against its plain version at a mpxv mate's size.
+    Returns (the text pack's row, the auto run's launch counts)."""
+    mates = make_pair(fastqs[0])
+    outs = {c: os.path.join(work, f"card_count_{c}") for c in ("auto", "host")}
+    with stream_env():
+        res, launches = drive(lambda: run_pair(db, mates, outs["auto"], "auto"))
+        res_h, launches_h = drive(lambda: run_pair(db, mates, outs["host"], "host"))
+    if {res.path, res_h.path} != {("hist", "streamed")}:
+        fail("card count", f"paths {res.path} (auto), {res_h.path} (host)")
+    on_card = (res.counts["device_counted"], res_h.counts["device_counted"])
+    if on_card != (2, 0):
+        fail("card count", f"device_counted {on_card} (auto, host), expected (2, 0)")
+    text_pack = {n: (launches[n], launches_h[n]) for n in ("fastq_lines", "fastq_pack")}
+    if text_pack != {"fastq_lines": (2, 0), "fastq_pack": (4, 0)}:
+        fail("card count", f"text pack launches (auto, host) {text_pack}, expected "
+                           "fastq_lines (2, 0) and fastq_pack (4, 0)")
+    if res.best != res_h.best or not np.array_equal(res.tallies, res_h.tallies):
+        fail("card count", "tallies or the selected genome differ from the host count's")
+    if not np.array_equal(res.pileup, res_h.pileup):
+        fail("card count", "pileups differ from the host count's")
+    if read_outputs(outs["auto"]) != read_outputs(outs["host"]):
+        fail("card count", "output files differ from the host count's")
+    print(f"[card count] s0 as a pair of mates, both counted on the card: path "
+          f"{res.path}, launches {launches}; tallies, genome {res.best}, pileup and "
+          f"{', '.join(read_outputs(outs['auto']))} equal --counter host's; "
+          f"{stage_line('card count auto', res, smi)}; "
+          f"{stage_line('card count host', res_h, smi)}", flush=True)
+
+    texts = []
+    for fastq in fastqs[:2]:
+        with gzip.open(fastq, "rb") as fh:
+            texts.append(fh.read())
+    text = b"".join(texts)
+    text = text[:first_records(text, MPXV_MATE_READS)]
+    t = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(CARD)
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    row.update(_check_and_time(
+        "fastq_pack", f"k={REPORT_K} {len(text)} bytes",
+        lambda: _pack_out(*count.fastq_pack(t, REPORT_K)),
+        lambda: _pack_out(*count.fastq_pack_plain(t, REPORT_K)), (t,), smi, row,
+        phase="card count"))
+    reads = count.fastq_pack(t, REPORT_K)[1]
+    if reads != MPXV_MATE_READS:
+        fail("card count", f"the text pack read {reads} records of {MPXV_MATE_READS}")
+    return row, launches
+
+
 def _variants_tool():
     """tools/torch_kernel_variants.py, loaded by path (tools/ is no package):
     the floor of kernel (c), the addresses it takes and the long rows."""
@@ -1986,20 +2094,23 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
     phase_warm(db + ".bkdb", fastq, work, args.warm, smi)
     stream_launches = phase_stream(db + ".bkdb", os.path.join(work, "panel32.bkdb"), fastqs,
                                    work, ref, panel_res, args.warm, smi)
+    rows["fastq_pack"], card_launches = phase_card_count(db + ".bkdb", fastqs, work, smi)
     with stream_env(BRONKO_NO_STREAM="1"):
         saved_rows, saved_launches = phase_saved(db + ".bkdb", fastqs, work, smi)
     rows.update(saved_rows)
 
     # each kernel's launches on its own path: K1, (b), K2 and (c) on the
-    # main path, K3 on the device counter's, K4 on the gather probe's
+    # main path, K3 on the device counter's, K4 on the gather probe's, the
+    # text pack on the card-counted pair's
     launches["pack_windows"] = count_launches["pack_windows"]
     launches["gather"] = rows["gather"]["launches"]
     launches["walk_hits"] = flat_launches["walk_hits"]
+    launches["fastq_pack"] = card_launches["fastq_pack"]
     print(f"[launches] main path {launches} (K3: the device counter's path; (d): the 300-strain "
           f"panel's call, {flat_launches}); device-counter "
           f"cohort {cohort_launches}; the card's index builds {build_launches}; mesh paths "
-          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; saved "
-          f"cohort {saved_launches}", flush=True)
+          f"{mesh_launches}; entry() {entry_launches}; streamed s0 {stream_launches}; "
+          f"card-counted pair {card_launches}; saved cohort {saved_launches}", flush=True)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

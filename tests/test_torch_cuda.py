@@ -293,7 +293,8 @@ def test_main_path_on_the_card_equals_the_cpu(gpu, tmp_path):
 
 @pytest.mark.parametrize("cap", ["default", "mixed"])
 def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, cap):
-    """The streamed single-sample path on the card (pinned uploads, every
+    """The streamed single-sample path on the card under --counter host
+    (pinned uploads, every
     partition's pass 1 enqueued before the sample's one sync) equals the
     classic card run and the CPU's streamed run: tallies, genome, pileup
     and files. With the probe cap at the first partition's bytes, the
@@ -329,8 +330,9 @@ def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, ca
         for var in ("BRONKO_STREAM", "BRONKO_NO_STREAM"):
             monkeypatch.delenv(var, raising=False)
         monkeypatch.setenv(env, "1")
+        # the host counter's partitions, which the card would not count
         cfg = CallConfig(genomes=genomes, reads=[fq], output=str(tmp_path / name),
-                         output_pileup=True, batch_size=1024)
+                         output_pileup=True, batch_size=1024, counter="host")
         dev = build_device_index(index, device)
         before = dict(cuda_lib.LAUNCHES)
         (results[name],) = run_call(cfg, index, dev)
@@ -346,6 +348,123 @@ def test_streamed_path_on_the_card_equals_classic(gpu, tmp_path, monkeypatch, ca
         np.testing.assert_array_equal(results[name].tallies, results["cpu"].tallies)
         np.testing.assert_array_equal(results[name].pileup, results["cpu"].pileup)
         for f in ("s.vcf", "s.tsv", "bronko_overview.tsv"):
+            assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
+
+
+def _fastq_text(rng, n, case):
+    """n FASTQ records of 1-300 bases (ACGT, some N, lowercase and other
+    bytes), headers of 1-40 bytes; `case` cuts or breaks the end."""
+    recs = []
+    for i in range(n):
+        L = int(rng.integers(0, 300))
+        seq = rng.choice(np.frombuffer(b"ACGTACGTACGTacgtNRY", np.uint8), L).tobytes()
+        head = b"@" + rng.choice(np.frombuffer(b"abc 0123:/", np.uint8),
+                                 int(rng.integers(0, 40))).tobytes()
+        recs.append(head + b"\n" + seq + b"\n+\n" + b"I" * L + b"\n")
+    text = b"".join(recs)
+    if case == "crlf":
+        text = text.replace(b"\n", b"\r\n")
+    elif case == "no_final_newline":
+        text = text[:-1]
+    elif case == "truncated":
+        text += b"@cut\nACGTACGTACGTACGTACGTACGTACGTACGT\n"
+    elif case == "malformed":
+        cut = text.index(b"\n@", len(text) // 2) + 1
+        text = text[:cut] + b"x" + text[cut + 1:]
+    return text
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7])
+@pytest.mark.parametrize("case", ["plain", "crlf", "no_final_newline", "truncated",
+                                  "malformed"])
+@pytest.mark.parametrize("k", [1, 5, 19, 21, 31])
+def test_fastq_pack_equals_plain_on_the_card(gpu, k, case, offset):
+    """The text pack (lines, count and write kernels) against its plain
+    version on the card: the same words in text order, reads and
+    malformed flag, on texts of many 8,192-byte tiles, with records across
+    tile edges, at aligned and unaligned starts."""
+    rng = np.random.default_rng(k * 100 + offset)
+    text = _fastq_text(rng, 400, case)
+    buf = torch.from_numpy(np.frombuffer(b"@" * offset + text, np.uint8).copy()).to(gpu)
+    t = buf[offset:]
+    before = dict(cuda_lib.LAUNCHES)
+    words, reads, bad = count.fastq_pack(t, k)
+    torch.cuda.synchronize()
+    want, want_reads, want_bad = count.fastq_pack_plain(t, k)
+    assert (reads, bad) == (want_reads, want_bad) and bad == (case == "malformed")
+    assert torch.equal(words, want)
+    assert cuda_lib.LAUNCHES["fastq_lines"] == before["fastq_lines"] + 1
+    assert cuda_lib.LAUNCHES["fastq_pack"] == before["fastq_pack"] + 1 + (words.numel() > 0)
+
+
+@pytest.mark.parametrize("size", [0, 1, 8191, 8192, 8193, 16384 + 31, 3 * 8192 - 1])
+def test_fastq_pack_at_the_tile_edges(gpu, size):
+    """Texts that end just before, at and past a tile's end, cut from a
+    long one (the last record most often truncated), at k = 21."""
+    rng = np.random.default_rng(size)
+    text = _fastq_text(rng, 200, "plain")[:size]
+    t = torch.from_numpy(np.frombuffer(text, np.uint8).copy()).to(gpu)
+    words, reads, bad = count.fastq_pack(t, 21)
+    want, want_reads, want_bad = count.fastq_pack_plain(t, 21)
+    assert (reads, bad) == (want_reads, want_bad)
+    assert torch.equal(words, want)
+
+
+def _panel(tmp_path, rng, n, glen):
+    base = make_genome(rng, glen)
+    genomes = []
+    for i in range(n):
+        g = bytearray(base)
+        for p in rng.integers(0, len(g), 8):
+            g[p] = b"ACGT"[(b"ACGT".index(g[p]) + 1 + i % 3) % 4]
+        genomes.append(str(tmp_path / f"g{i}.fasta"))
+        write_fasta(genomes[-1], f"g{i}", bytes(g))
+    return base, genomes
+
+
+@pytest.mark.parametrize("case,mode", [("sars2_like", "hist"), ("g16", "words")])
+def test_streamed_device_count_on_the_card_equals_the_host_count(gpu, tmp_path, monkeypatch,
+                                                                 case, mode):
+    """A streamed pair whose mates the card counts (--counter auto) against
+    the host count on the card and on the CPU: the same resolved tallies,
+    genome, pileup and files, both mates counted on the card through the
+    text pack, on the single histogram word (4 strains) and on the words
+    (16 strains)."""
+    from bronko_tpu_torch.call import device_count
+
+    rng = np.random.default_rng(len(case))
+    base, genomes = _panel(tmp_path, rng, 4 if case == "sars2_like" else 16, 3000)
+    reads, _ = make_sample(base, rng, read_len=150, depth=400,
+                           major_positions={900: 0.9, 2100: 0.85}, error_rate=0.003)
+    r1, r2 = str(tmp_path / "s_1.fastq.gz"), str(tmp_path / "s_2.fastq.gz")
+    write_fastq(r1, reads[::2])
+    write_fastq(r2, reads[1::2])
+    index = build_index(21, genomes)
+    for var in ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST"):
+        monkeypatch.delenv(var, raising=False)
+    results, launches = {}, {}
+    for name, device, counter in (("cpu", torch.device("cpu"), "host"),
+                                  ("gpu_host", gpu, "host"), ("gpu_card", gpu, "auto")):
+        cfg = CallConfig(genomes=genomes, first_pairs=[r1], second_pairs=[r2],
+                         output=str(tmp_path / name), output_pileup=True, batch_size=4096,
+                         counter=counter)
+        before = dict(cuda_lib.LAUNCHES)
+        (results[name],) = run_call(cfg, index, build_device_index(index, device))
+        torch.cuda.synchronize()
+        launches[name] = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+    assert device_count.usable(CallConfig(), gpu)
+    assert {r.path for r in results.values()} == {(mode, "streamed")}
+    assert [results[n].counts["device_counted"] for n in ("cpu", "gpu_host", "gpu_card")] == \
+        [0, 0, 2]
+    assert launches["gpu_card"]["fastq_lines"] == 2 and launches["gpu_card"]["fastq_pack"] == 4
+    assert launches["gpu_host"]["fastq_pack"] == 0
+    for name in ("gpu_host", "gpu_card"):
+        assert results[name].best == results["cpu"].best
+        np.testing.assert_array_equal(results[name].tallies, results["cpu"].tallies)
+        np.testing.assert_array_equal(results[name].pileup, results["cpu"].pileup)
+        files = sorted(os.listdir(tmp_path / name))
+        assert len(files) == 3 and files == sorted(os.listdir(tmp_path / "cpu"))
+        for f in files:
             assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
 
 

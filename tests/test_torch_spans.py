@@ -146,7 +146,8 @@ def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch
     mates counted while they inflated: both of `serial`, process_sample,
     which counts each from its path and whose map uploads the batches
     itself; mate 1 of the streamed path; none of the classic path, whose
-    mates come from the inflate-ahead worker."""
+    mates come from the inflate-ahead worker; and the mates counted on the
+    card, none on the CPU."""
     from bronko_tpu_torch.io import native
 
     _, ref, pairs, index, dev = synth
@@ -160,8 +161,9 @@ def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch
         (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
     s = r.summary
     rows = r.counts["rows"]
-    assert set(r.counts) == {"rows", "batches", "words", "piped"}
+    assert set(r.counts) == {"rows", "batches", "words", "piped", "device_counted"}
     assert r.counts["piped"] == {"serial": 2, "streamed": 1, "classic": 0}[path]
+    assert r.counts["device_counted"] == 0  # the CPU: the host counts
     assert rows == s.n_perfect + s.n_variant + s.n_unmapped > 4096
     least = -(-rows // 4096)
     if path != "streamed":

@@ -16,13 +16,19 @@ lone-sample traffic sets it; 1 opens the parallel inflater's gate):
           pipelined front end (one reader inflating, T-1 threads parsing)
           whatever the gate would pick;
   parent: with --parent, the `whole` flow of another checkout's native
-          library (DIR holds its `bronko_tpu_torch/`).
+          library (DIR holds its `bronko_tpu_torch/`);
+  device: where a CUDA card is, the streamed lone sample's count on the
+          card (call/device_count.py): the mate read and inflated a block
+          at a time into page-locked memory (`inflate`), its copy to the
+          card and the text pack (`parse`), the sort, run lengths, cap and
+          floor (`finalize`), timed to the card's end of it.
 
 Each count's k-mers, counts and stats must equal the first's. Prints
 whether libdeflate loads on this host (the whole buffer's serial inflate
 and its BGZF inflate use it when it does, zlib otherwise), the host's
-CPU count, each round with the parallel inflates it ran and, last, one
-JSON line of the medians. Runs on the CPU; no card.
+CPU count, the card's name and power limit where one is, each round with
+the parallel inflates it ran and, last, one JSON line of the medians.
+Without a card it runs on the CPU alone, without the device flow.
 """
 
 from __future__ import annotations
@@ -107,6 +113,49 @@ def libdeflate_loads() -> bool:
     return False
 
 
+def card_name() -> str | None:
+    """The CUDA card's name and power limit, or None without one."""
+    import subprocess
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    try:
+        limit = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        limit = "power limit unknown"
+    return f"{torch.cuda.get_device_name(0)}, {limit}"
+
+
+def count_on_card(path: str, seconds: dict):
+    """The device flow: ((k-mers u64, counts int64, stats) on the host,
+    the wall seconds to the card's end of the count)."""
+    from dataclasses import asdict
+
+    import torch
+
+    from bronko_tpu_torch.call import device_count
+    from bronko_tpu_torch.ops.count import count_words, fastq_pack
+
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    blocks, _ = device_count.stage_text(path)
+    t1 = time.perf_counter()
+    words, reads, malformed = fastq_pack(device_count.upload_text(blocks, device), 21)
+    assert not malformed
+    t2 = time.perf_counter()
+    kmers, counts, stats = count_words(words, reads, 3, 1_000_000)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    seconds.update(inflate=t1 - t0, parse=t2 - t1, finalize=t3 - t2)
+    got = (kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().astype(np.int64),
+           asdict(stats))
+    return got, t3 - t0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=400_000)
@@ -127,6 +176,9 @@ def main() -> int:
     flows = {"whole": native, "piped": native}
     if args.parent:
         flows["parent"] = load_native(os.path.abspath(args.parent), "parent_native")
+    card = card_name()
+    if card:
+        flows["device"] = None
     out = args.out or tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, "mate1.fastq.gz")
@@ -149,11 +201,14 @@ def main() -> int:
             if flow == "piped":
                 os.environ["BRONKO_WHOLEBUF_MAX"] = "0"
             t0 = time.perf_counter()
-            text = mod.native_read_inflate(path) if flow != "piped" else None
-            got = mod.native_count_fastq(path, 21, 3, 1_000_000, threads=args.threads,
-                                         text=text, seconds=seconds,
-                                         **({"counters": counters} if flow != "parent" else {}))
-            wall = time.perf_counter() - t0
+            if flow == "device":
+                got, wall = count_on_card(path, seconds)
+            else:
+                text = mod.native_read_inflate(path) if flow != "piped" else None
+                got = mod.native_count_fastq(
+                    path, 21, 3, 1_000_000, threads=args.threads, text=text, seconds=seconds,
+                    **({"counters": counters} if flow != "parent" else {}))
+                wall = time.perf_counter() - t0
             os.environ.pop("BRONKO_WHOLEBUF_MAX", None)
             counters["parallel_inflates"] = lib.bronko_gz_parallel_runs() - runs0
             if first is None:
@@ -163,7 +218,7 @@ def main() -> int:
             times[flow].append(wall)
             parts[flow].append(seconds)
             print(f"round {r} {flow}: {wall:.4f} s {json.dumps(seconds)} {counters}", flush=True)
-    result = {"host_cpus": os.cpu_count(), "libdeflate": libdeflate_loads(),
+    result = {"host_cpus": os.cpu_count(), "libdeflate": libdeflate_loads(), "card": card,
               "parallel_gz": args.parallel_gz, "bgzf": args.bgzf, "reads": args.pairs, "text_bytes": text_bytes, "stats": first[2]}
     for flow in flows:
         result[f"{flow}_s"] = statistics.median(times[flow])
