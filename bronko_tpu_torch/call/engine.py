@@ -24,7 +24,9 @@ Each sample's SampleResult.counts holds what it mapped: its kept k-mer
 rows, its device batches and the index's histogram words a row; and how
 it was counted: `piped`, its mates the native counter counted while they
 inflated (io/native.py), and `device_counted`, its mates counted on the
-card (call/device_count.py), each 0, 1 or 2.
+card (call/device_count.py), each 0, 1 or 2, and `count_parts`, the parts
+the card counted those mates in (one a mate within device_count.PART_BYTES
+of text).
 
 On one device a PendingMap holds steps 3-5 of a sample: pass 1 enqueued
 over its parts (one for a classic sample, one a partition for a
@@ -54,13 +56,14 @@ The streamed path (JAX engine.py:1059-1374): a lone sample, or a
 cohort's first, may count into pass 1 instead. Under --counter auto on a
 card each mate is counted there (call/device_count.py: its text read and
 inflated on the host into page-locked blocks, mate 2 beside mate 1 on a
-helper thread, then copied to the card; the text pack, a sort, the cap
-and the floor on the card), and its kept k-mers go into pass 1
-straight from the card, in batches, as one part. Otherwise, and for a
-mate the card does not take, the native counter finalizes one key-range
-partition at a time (io/native.py: native_count_fastq_stream), and each
-partition is uploaded from page-locked memory and its pass 1 enqueued
-while the host sorts the next. Each part belongs to the sample's
+helper thread, then copied to the card a part at a time; the text pack,
+a sort, the cap and the floor on the card, a deep mate's parts merged
+there), and its kept k-mers go into pass 1 straight from the card, in
+batches, as one part. Otherwise, and for a mate the card does not take,
+the native counter finalizes one key-range partition at a time
+(io/native.py: native_count_fastq_stream), and each partition is
+uploaded from page-locked memory and its pass 1 enqueued while the host
+sorts the next. Each part belongs to the sample's
 PendingMap, resolved on the main thread. `_can_stream` streams every sample that
 can: not under a mesh, --keep-kmer-info or the device counter, on an
 index with a histogram and postings grouped by genome, with the native
@@ -76,11 +79,13 @@ into the sample's SampleResult.seconds, and under torch.profiler it is a
 the seconds hold SPAN_KEYS, the parts of `count` (io/native.py: inflate,
 parse, finalize, text_wait; for a mate counted on the card,
 call/device_count.py: the read and inflate into page-locked blocks in
-inflate, the copy to the card and the text pack in parse, the sort, cap
-and floor in finalize; `dispatch`, the streamed path's uploads and
-pass-1 enqueues), the main thread's wait for the sample's count
-(`count_wait`), so that count ~ inflate - inflate_ahead + text_wait +
-parse + finalize + dispatch, and the parts of `call` (`noise`, the noise
+inflate, the copy to the card and the text pack in parse, each part's
+sort in finalize (a mate in one part: its cap and floor too), the sum
+of a mate's parts, the cap and the floor in `merge` where it took more;
+`dispatch`, the streamed path's uploads and pass-1 enqueues), the main
+thread's wait for the sample's count (`count_wait`), so that count ~
+inflate - inflate_ahead + text_wait + parse + finalize + merge +
+dispatch, and the parts of `call` (`noise`, the noise
 scan; `variants`, the filter cascade; `write`, the writers), so that
 call ~ noise + variants + write. Ranges with no seconds name what a
 thread waits on or works in: `map.rows=<n>.batches=<n>.words=<n>` (the
@@ -147,8 +152,8 @@ log = logging.getLogger("bronko")
 STAGES = ("count", "h2d", "pass1", "pass2", "d2h", "call")
 # the spans' seconds beside the stages (the module's docstring); 0 where a
 # sample's path has no such span
-SPAN_KEYS = ("inflate", "inflate_ahead", "parse", "finalize", "text_wait", "dispatch",
-             "count_wait", "noise", "variants", "write")
+SPAN_KEYS = ("inflate", "inflate_ahead", "parse", "finalize", "merge", "text_wait",
+             "dispatch", "count_wait", "noise", "variants", "write")
 
 # cap on the saved pass-1 probe, which stays on the device until pass 2
 # (JAX engine.py:51)
@@ -171,7 +176,8 @@ class SampleResult:
     counts: dict[str, int]       # rows (kept k-mers mapped), batches (device batches),
     #                              words (histogram words a row; 0 without one),
     #                              piped (mates counted while they inflated),
-    #                              device_counted (mates counted on the card)
+    #                              device_counted (mates counted on the card),
+    #                              count_parts (the parts those mates took)
     path: tuple[str, str]        # (pass-1 mode, pass 2: 'saved', 'subindex' or
     #                              'streamed')
 
@@ -602,7 +608,7 @@ def _map_one(counted: Counted, index: BronkoIndex, dev: DeviceIndex,
     # no bucket survives the trim: nothing to map
     n_kmers = counted.kmers.shape[0] if len(mcfg.positions) else 0
     mapped_counts = {**map_counts(n_kmers, -(-n_kmers // cfg.batch_size), dev),
-                     "piped": counted.piped, "device_counted": 0}
+                     "piped": counted.piped, "device_counted": 0, "count_parts": 0}
     with span(map_range(mapped_counts)):
         seconds: dict[str, float] = {}
         device = dev.device if mapper is None else mapper.device
@@ -772,7 +778,7 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
     seconds (io/native.py, call/device_count.py), each part's upload and
     enqueue and the copy's into `dispatch`."""
     seconds = {"h2d": 0.0}
-    counters = {"piped": 0, "device_counted": 0}
+    counters = {"piped": 0, "device_counted": 0, "count_parts": 0}
     with span("count", seconds) as count_span:
         device = dev.device
         mcfg = dev.map_config(cfg.n_fixed, cfg.use_full_kmer)
@@ -801,8 +807,8 @@ def _stream_pass1(paths: list[str], index: BronkoIndex, dev: DeviceIndex, cfg: C
             copy = _copy_pass1(acc, parts)
     cstats = CountStats(**totals)
     log.info("%d reads counted from %s (streamed), %d mate(s) while they inflated, "
-             "%d on the card", cstats.total_reads, paths[0], counters["piped"],
-             counters["device_counted"])
+             "%d on the card in %d part(s)", cstats.total_reads, paths[0], counters["piped"],
+             counters["device_counted"], counters["count_parts"])
     log.info(
         "%d unique kmers above %d count, %d total unique kmers, "
         "%d total kmers (~%d basepairs); dispatched in %.2fs",

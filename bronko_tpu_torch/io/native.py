@@ -38,10 +38,11 @@ partition at a time, for the engine's streamed single-sample path where
 the host counts. Where the card counts a streamed sample's mate
 (call/device_count.py), the host only reads and inflates it, a block at
 a time into page-locked memory, through `TextReader` (the pipelined
-front end's reader, handing out the text unparsed); `whole_buf_size`
-says whether the file fits the whole-buffer cap. The spans keep their
-keys there: `inflate` is the read and inflate, `parse` the copy to the
-card and the text pack, and `finalize` the card's sort, cap and floor.
+front end's reader, handing out the text unparsed), whatever its size:
+the whole-buffer cap bounds only the host's whole-buffer front end. The
+spans keep their keys there: `inflate` is the read and inflate, `parse`
+the copy to the card and the text pack, `finalize` the card's sort, cap
+and floor, and `merge` the merge of a mate's parts.
 """
 
 from __future__ import annotations
@@ -147,8 +148,6 @@ def get_lib():
         lib.bronko_counter_pipes.argtypes = [ctypes.c_char_p]
         lib.bronko_counter_inflate_seconds.restype = ctypes.c_double
         lib.bronko_counter_inflate_seconds.argtypes = [ctypes.c_void_p]
-        lib.bronko_whole_buf_size.restype = ctypes.c_int64
-        lib.bronko_whole_buf_size.argtypes = [ctypes.c_char_p]
         lib.bronko_gz_open.restype = ctypes.c_void_p
         lib.bronko_gz_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
         lib.bronko_gz_read.restype = ctypes.c_int64
@@ -395,13 +394,6 @@ def native_count_fastq_stream(paths: list[str], k: int, min_count: int,
                     next_tf.result().close()
                 except Exception:  # noqa: BLE001 — the prefetch itself failed
                     pass
-
-
-def whole_buf_size(path: str) -> int:
-    """The byte size of a file within the whole-buffer cap for its kind
-    (compressed or not; BRONKO_WHOLEBUF_MAX overrides both), -1 past it,
-    -2 when it cannot be opened."""
-    return int(get_lib().bronko_whole_buf_size(path.encode()))
 
 
 class TextReader:

@@ -238,9 +238,11 @@ struct Counter {
   }
 };
 
-// whole-buffer front-end input caps (compressed gz ~8x smaller than text);
-// BRONKO_WHOLEBUF_MAX (bytes) overrides both — tests use it to force the
-// pipelined front end on small fixtures of any kind
+// whole-buffer front-end input caps (compressed gz ~8x smaller than text),
+// past which the host counts a file on the pipelined front end instead; they
+// bound the host's buffers alone (the card counts a mate of any size in
+// parts, call/device_count.py). BRONKO_WHOLEBUF_MAX (bytes) overrides both —
+// tests use it to force the pipelined front end on small fixtures of any kind
 constexpr size_t kWholeBufMaxGz = 192ull << 20;     // ~1.5 GB inflated
 constexpr size_t kWholeBufMaxPlain = 1536ull << 20;
 
@@ -1134,10 +1136,6 @@ int bronko_counter_count_text(void* h, const void* text, int64_t size) {
   return count_text(static_cast<Counter*>(h),
                     static_cast<const char*>(text), (size_t)size);
 }
-
-// The byte size of a file that the whole-buffer front end would take,
-// -1 past the cap for its kind, -2 when it cannot be opened.
-int64_t bronko_whole_buf_size(const char* path) { return whole_buf_size(path); }
 
 // A file's text a buffer at a time (GzStream): a handle to read with
 // bronko_gz_read and free with bronko_gz_close, or NULL with *err -1

@@ -22,11 +22,15 @@ copy brings the sample's k-mers back to the host, sorted ascending as
 the native counter's are.
 
 A streamed lone sample counts each mate on the card from its FASTQ text
-instead (call/device_count.py): the text pack (`fastq_pack`, kernels of
-`csrc/count_kernels.cu`; its plain version `fastq_pack_plain`) emits
-every window the native counter counts, then `count_words` sorts them
-with run lengths and applies the cap and the floor, as `finalize`; the
-kept k-mers and counts stay on the device.
+instead (call/device_count.py), in parts that end at a record's end
+(`fastq_records_end`) where the text is large: the text pack
+(`fastq_pack`, kernels of `csrc/count_kernels.cu`; its plain version
+`fastq_pack_plain`) emits every window the native counter counts, each
+part's windows are sorted into runs of (k-mer, count) (`reduce_words`),
+and `merge_runs` (plain version `merge_runs_plain`) sums the runs of all
+parts in int64, then caps, then floors, once, as `finalize` merges the
+chunks; the kept k-mers and counts stay on the device. `count_words` is
+that count of one whole text.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from bronko_tpu_torch.ops.cuda_lib import (
 )
 
 __all__ = ["CountStats", "KmerCounter", "count_words", "extract_and_count_chunk",
-           "fastq_pack", "fastq_pack_plain", "pack_windows", "pack_windows_plain"]
+           "fastq_pack", "fastq_pack_plain", "fastq_records_end", "merge_runs",
+           "merge_runs_plain", "pack_windows", "pack_windows_plain", "reduce_words"]
 
 # text bytes a block of the text pack takes (kTextTile in csrc/count_kernels.cu)
 TEXT_TILE = 8192
@@ -112,7 +117,7 @@ def extract_and_count_chunk(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     words, valid = pack_windows(codes, lengths, k)
     flat = words[valid]
     del words, valid
-    kmers, counts = torch.unique(flat, sorted=True, return_counts=True)
+    kmers, counts = reduce_words(flat)
     return kmers, counts.to(torch.int32), flat.numel()
 
 
@@ -150,20 +155,12 @@ class KmerCounter:
         counts >= min_count; fill the unique-k-mer stats. Returns ascending
         uint64 k-mers and their int64 counts."""
         chunks, self._chunks = self._chunks, []
-        kmers = torch.cat([c[0] for c in chunks]) if chunks else torch.empty(0, dtype=torch.int64)
-        if kmers.numel() == 0:
+        if sum(c[0].numel() for c in chunks) == 0:
             return np.empty(0, np.uint64), np.empty(0, np.int64)
-        counts = torch.cat([c[1] for c in chunks]).to(torch.int64)
-        if len(chunks) > 1:
-            kmers, order = torch.sort(kmers)
-            counts = counts[order]
-        uniq, seg = torch.unique_consecutive(kmers, return_counts=True)
-        ends = counts.cumsum(0)[seg.cumsum(0) - 1]
-        sums = torch.diff(ends, prepend=ends.new_zeros(1)).clamp_max_(self.count_cap)
-        keep = sums >= self.min_count
-        self.stats.unique_kmers = int(uniq.numel())
-        self.stats.unique_counted_kmers = int(keep.sum())
-        return to_u64(uniq[keep]), sums[keep].cpu().numpy()
+        kmers, sums, distinct = merge_runs(chunks, self.min_count, self.count_cap)
+        self.stats.unique_kmers = distinct
+        self.stats.unique_counted_kmers = int(kmers.numel())
+        return to_u64(kmers), sums.cpu().numpy()
 
 
 def _text_codes(text: torch.Tensor) -> torch.Tensor:
@@ -204,6 +201,16 @@ def fastq_pack_plain(text: torch.Tensor, k: int) -> tuple[torch.Tensor, int, boo
     start = line[:W]
     valid = (n_bad[k:] == n_bad[:W]) & (start % 4 == 1) & (start // 4 < reads)
     return words[valid], reads, malformed
+
+
+def fastq_records_end(text: torch.Tensor) -> int:
+    """The bytes of whole records at the start of `text` (uint8 FASTQ that
+    starts at a record's start): up to and with its (4R)-th newline, the
+    one ending record R's quality line, R its newlines // 4; 0 with fewer
+    than four. What follows starts a record that goes on past the text."""
+    nl = torch.nonzero(text == 10).squeeze(1)
+    whole = nl.numel() // 4 * 4
+    return int(nl[whole - 1]) + 1 if whole else 0
 
 
 def _to_host_ints(t: torch.Tensor) -> list[int]:
@@ -253,15 +260,56 @@ def fastq_pack(text: torch.Tensor, k: int) -> tuple[torch.Tensor, int, bool]:
     return words, (n_lines + 1) // 4, bool(malformed)
 
 
+def reduce_words(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed windows (a text's or a read chunk's) -> their runs: the
+    ascending distinct int64 k-mers and their int64 counts (one sort with
+    run lengths, torch.unique), each in storage of its own size (on a card
+    torch.unique's outputs keep storage of the windows' size, which runs
+    held until a merge would pile up)."""
+    kmers, counts = torch.unique(words, sorted=True, return_counts=True)
+    return kmers.clone(), counts.clone()
+
+
+def merge_runs(runs: list[tuple[torch.Tensor, torch.Tensor]], min_count: int,
+               count_cap: int = KMER_COUNT_CAP):
+    """Merge the runs of one stream's parts (each ascending distinct
+    k-mers and their counts) as KMC -ci -cs applies to the total: the
+    counts of a k-mer summed over the parts in int64, then capped at
+    count_cap, then kept where at least min_count. Returns (the kept
+    ascending k-mers, their int64 counts, the distinct k-mers before the
+    floor)."""
+    if len(runs) == 1:
+        kmers, sums = runs[0][0], runs[0][1].to(torch.int64).clamp_max(count_cap)
+    else:
+        kmers, order = torch.sort(torch.cat([r[0] for r in runs]))
+        counts = torch.cat([r[1].to(torch.int64) for r in runs])[order]
+        kmers, seg = torch.unique_consecutive(kmers, return_counts=True)
+        ends = counts.cumsum(0)[seg.cumsum(0) - 1]
+        sums = torch.diff(ends, prepend=ends.new_zeros(1)).clamp_max_(count_cap)
+    keep = torch.nonzero(sums >= min_count).squeeze(1)
+    return kmers[keep], sums[keep], kmers.numel()
+
+
+def merge_runs_plain(runs: list[tuple[torch.Tensor, torch.Tensor]], min_count: int,
+                     count_cap: int = KMER_COUNT_CAP):
+    """merge_runs' result the plain way: every k-mer's counts added into
+    its slot among the distinct k-mers (index_add_ in int64)."""
+    kmers, slot = torch.unique(torch.cat([r[0] for r in runs]), sorted=True,
+                               return_inverse=True)
+    sums = torch.zeros(kmers.numel(), dtype=torch.int64, device=kmers.device)
+    sums.index_add_(0, slot, torch.cat([r[1].to(torch.int64) for r in runs]))
+    sums.clamp_max_(count_cap)
+    keep = sums >= min_count
+    return kmers[keep], sums[keep], kmers.numel()
+
+
 def count_words(words: torch.Tensor, reads: int, min_count: int,
                 count_cap: int = KMER_COUNT_CAP):
     """Count the packed windows of one FASTQ text on their device (KMC -b
-    -ci -cs, as the native counter): one sort with run lengths
-    (torch.unique), the cap, then the floor. Returns (ascending int64
-    k-mers, their int32 counts), both on the device, and the CountStats
-    of `reads` reads."""
-    kmers, counts = torch.unique(words, sorted=True, return_counts=True)
-    counts.clamp_max_(count_cap)
-    keep = torch.nonzero(counts >= min_count).squeeze(1)
-    stats = CountStats(reads, words.numel(), kmers.numel(), keep.numel())
-    return kmers[keep], counts[keep].to(torch.int32), stats
+    -ci -cs, as the native counter): its runs (reduce_words), the cap,
+    then the floor (merge_runs). Returns (ascending int64 k-mers, their
+    int32 counts), both on the device, and the CountStats of `reads`
+    reads."""
+    kmers, counts, distinct = merge_runs([reduce_words(words)], min_count, count_cap)
+    return kmers, counts.to(torch.int32), CountStats(reads, words.numel(), distinct,
+                                                     kmers.numel())

@@ -110,11 +110,17 @@ Phases, one line each; any failure exits non-zero:
      ('hist', 'streamed'), device_counted 2 and 0, the text pack's
      kernels launched 2 (fastq_lines) and 4 (fastq_pack) times by the
      auto run alone, its tallies, genome, pileup and files equal the host
-     count's; then the text pack (ops/count.py::fastq_pack) against its
-     plain version on the same card tensor at a mpxv-16ref.single400k
-     mate's size (400,000 records of s0 and s1, ~126 MB), exact in words,
-     reads and malformed flag, timed with its bound (the text read once
-     and 8 bytes a window written);
+     count's; the auto run again in parts of CARD_PART_BYTES: both mates
+     on the card in more than two parts, fastq_lines launched once a part,
+     no warning, the same tallies, genome, pileup and files; then the text
+     pack (ops/count.py::fastq_pack) against its plain version on the same
+     card tensor, exact in words, reads and malformed flag, timed with its
+     bound (the text read once and 8 bytes a window written), at a
+     mpxv-16ref.single400k mate's size (400,000 records of s0 and s1, ~126
+     MB) and at a deep mate's part (s0-s2's text: PART_BYTES and half a
+     record, cut by ops/count.py::fastq_records_end after its last whole
+     record; the cut held against the host's), the part's numbers under
+     `part` in the text pack's row of the kernels line;
  16. saved: the classic path with the saved probe (a one-part
      PendingMap: pass 1 and its copy enqueued with no host sync, then the
      host's pick and pass 2 from the probe), which every classic sample
@@ -157,6 +163,7 @@ import argparse  # noqa: E402
 import gzip  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
+import logging  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
@@ -217,6 +224,7 @@ MESH_TIMEOUT = 300  # seconds for one run of the mesh phase's rank processes
 STREAM_WARM = 9  # warm runs of each path in the stream phase, at least
 STREAM_VARS = ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST")
 MPXV_MATE_READS = 400_000  # a mate of a mpxv-16ref.single400k sample
+CARD_PART_BYTES = 8 << 20  # the card count's parts in the card count phase: ~6 a mate
 CARD = torch.device("cuda", 0)
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "bucket_queries": ("bronko_tpu/ops/pallas_buckets.py:83",
@@ -1689,11 +1697,35 @@ def _pack_out(words: torch.Tensor, reads: int, malformed: bool):
     return words, torch.tensor([reads, int(malformed)])
 
 
+@contextmanager
+def card_parts(part_bytes: int):
+    """A mate counted on the card in parts of `part_bytes` for the
+    duration; yields the list of warnings the port logs meanwhile."""
+    from bronko_tpu_torch.call import device_count
+
+    warned = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    handler, logger = Keep(logging.WARNING), logging.getLogger("bronko")
+    old = device_count.PART_BYTES
+    device_count.PART_BYTES = part_bytes
+    logger.addHandler(handler)
+    try:
+        yield warned
+    finally:
+        logger.removeHandler(handler)
+        device_count.PART_BYTES = old
+
+
 def phase_card_count(db: str, fastqs: list[str], work: str, smi: str):
     """A lone pair streamed on the card under --counter auto, each mate
-    counted there, against --counter host (module docstring, 15b); then
-    the text pack against its plain version at a mpxv mate's size.
-    Returns (the text pack's row, the auto run's launch counts)."""
+    counted there, against --counter host (module docstring, 15b), whole
+    and in parts; then the text pack against its plain version at a mpxv
+    mate's size and at a deep mate's part. Returns (the text pack's row,
+    the part's numbers under `part`; the auto run's launch counts)."""
     mates = make_pair(fastqs[0])
     outs = {c: os.path.join(work, f"card_count_{c}") for c in ("auto", "host")}
     with stream_env():
@@ -1720,12 +1752,31 @@ def phase_card_count(db: str, fastqs: list[str], work: str, smi: str):
           f"{stage_line('card count auto', res, smi)}; "
           f"{stage_line('card count host', res_h, smi)}", flush=True)
 
+    # the same pair, each mate counted in parts
+    out_parts = os.path.join(work, "card_count_parts")
+    with stream_env(), card_parts(CARD_PART_BYTES) as warned:
+        res_p, launches_p = drive(lambda: run_pair(db, mates, out_parts, "auto"))
+    parts = res_p.counts["count_parts"]
+    if res_p.counts["device_counted"] != 2 or parts <= 2 or warned:
+        fail("card count", f"in parts: device_counted {res_p.counts['device_counted']}, "
+                           f"count_parts {parts}, warnings {warned}")
+    if launches_p["fastq_lines"] != parts:
+        fail("card count", f"in parts: {launches_p['fastq_lines']} fastq_lines launches "
+                           f"for {parts} parts")
+    if (res_p.best != res_h.best or not np.array_equal(res_p.tallies, res_h.tallies)
+            or not np.array_equal(res_p.pileup, res_h.pileup)
+            or read_outputs(out_parts) != read_outputs(outs["host"])):
+        fail("card count", "in parts: results differ from the host count's")
+    print(f"[card count] the pair in parts of {CARD_PART_BYTES} bytes: both mates on the card in {parts} parts, no warning, merge "
+          f"{res_p.seconds['merge']:.4f} s; tallies, genome, pileup and files equal "
+          f"--counter host's; {stage_line('card count parts', res_p, smi)}", flush=True)
+
     texts = []
-    for fastq in fastqs[:2]:
+    for fastq in fastqs:
         with gzip.open(fastq, "rb") as fh:
             texts.append(fh.read())
-    text = b"".join(texts)
-    text = text[:first_records(text, MPXV_MATE_READS)]
+    joined = b"".join(texts)
+    text = joined[:first_records(joined, MPXV_MATE_READS)]
     t = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(CARD)
     row = {"max_abs_err": 0.0, "library_ms": None}
     row.update(_check_and_time(
@@ -1736,7 +1787,41 @@ def phase_card_count(db: str, fastqs: list[str], work: str, smi: str):
     reads = count.fastq_pack(t, REPORT_K)[1]
     if reads != MPXV_MATE_READS:
         fail("card count", f"the text pack read {reads} records of {MPXV_MATE_READS}")
+    del t
+    row["part"] = _part_row(joined, smi, row)
     return row, launches
+
+
+def _part_row(joined: bytes, smi: str, row: dict) -> dict:
+    """The text pack against its plain version on one part as a deep mate
+    gives it: PART_BYTES of `joined` (whole records from its start) and
+    half a record, cut on the card after its last whole record (the cut
+    held against the host's). Returns the part's bytes and numbers; the
+    text pack's max_abs_err goes into `row`."""
+    from bronko_tpu_torch.call import device_count
+
+    size = device_count.PART_BYTES + first_records(joined, 1) // 2
+    if len(joined) < size:
+        fail("card count", f"{len(joined)} bytes of text where a part needs {size}")
+    part = joined[:size]
+    tp = torch.frombuffer(bytearray(part), dtype=torch.uint8).to(CARD)
+    end = count.fastq_records_end(tp)
+    nl = np.flatnonzero(np.frombuffer(part, np.uint8) == 10)
+    records = len(nl) // 4
+    if end != int(nl[4 * records - 1]) + 1 or end >= size:
+        fail("card count", f"the part of {size} bytes was cut at {end}, the host cuts at "
+                           f"{int(nl[4 * records - 1]) + 1}")
+    t = tp[:end]
+    out = _check_and_time(
+        "fastq_pack", f"k={REPORT_K} one part, {end} bytes ({device_count.PART_BYTES} and "
+                      f"half a record, cut after record {records})",
+        lambda: _pack_out(*count.fastq_pack(t, REPORT_K)),
+        lambda: _pack_out(*count.fastq_pack_plain(t, REPORT_K)), (t,), smi, row,
+        phase="card count")
+    reads = count.fastq_pack(t, REPORT_K)[1]
+    if reads != records:
+        fail("card count", f"the text pack read {reads} records of the part's {records}")
+    return {"bytes": end, **out}
 
 
 def _variants_tool():
@@ -2117,6 +2202,7 @@ def run_phases(args, kind: str, smi: str, drawing: subprocess.Popen, t_start: fl
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
         "library_ms": rows[name]["library_ms"],
+        **({"part": rows[name]["part"]} if "part" in rows[name] else {}),
     } for name, (replaces, source) in KERNELS.items()]
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

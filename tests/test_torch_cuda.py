@@ -468,6 +468,63 @@ def test_streamed_device_count_on_the_card_equals_the_host_count(gpu, tmp_path, 
             assert open(tmp_path / name / f).read() == open(tmp_path / "cpu" / f).read()
 
 
+def test_a_mate_counts_on_the_card_in_parts(gpu, tmp_path, monkeypatch, caplog):
+    """Both mates of a streamed pair in parts of 256 KiB: count_mates on the card
+    equals its plain version (the CPU taken as a card) and the native
+    count in k-mers, counts and stats; run_call under --counter auto counts
+    both mates on the card in several parts, with no warning, and writes
+    the host count's files."""
+    import logging
+
+    from bronko_tpu_torch.call import device_count
+    from bronko_tpu_torch.io import native
+
+    rng = np.random.default_rng(29)
+    base, genomes = _panel(tmp_path, rng, 8, 3000)
+    reads, _ = make_sample(base, rng, read_len=150, depth=600,
+                           major_positions={900: 0.9, 2100: 0.85}, error_rate=0.003)
+    r1, r2 = str(tmp_path / "s_1.fastq.gz"), str(tmp_path / "s_2.fastq.gz")
+    write_fastq(r1, reads[::2])
+    write_fastq(r2, reads[1::2])
+    index = build_index(21, genomes)
+    for var in ("BRONKO_STREAM", "BRONKO_NO_STREAM", "BRONKO_STREAM_FIRST"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(device_count, "PART_BYTES", 256 << 10)
+    monkeypatch.setattr(device_count, "BLOCK_BYTES", 64 << 10)
+    caplog.set_level(logging.WARNING, logger="bronko")
+    counters = {}
+    card = list(device_count.count_mates([r1, r2], 21, 3, KMER_COUNT_CAP, gpu,
+                                         counters=counters))
+    monkeypatch.setattr(device_count, "budget", lambda device: 1 << 40)
+    plain = list(device_count.count_mates([r1, r2], 21, 3, KMER_COUNT_CAP,
+                                          torch.device("cpu")))
+    assert counters["device_counted"] == 2 and counters["count_parts"] > 4
+    for (km, ct, st), (pk, pc, ps), path in zip(card, plain, (r1, r2)):
+        want_k, want_c, want_st = native.native_count_fastq(path, 21, 3, KMER_COUNT_CAP)
+        assert torch.equal(km.cpu(), pk) and torch.equal(ct.cpu(), pc) and st == ps == want_st
+        np.testing.assert_array_equal(pk.numpy(), want_k.view(np.int64))
+        np.testing.assert_array_equal(pc.numpy(), want_c)
+    monkeypatch.undo()
+    monkeypatch.setattr(device_count, "PART_BYTES", 256 << 10)
+    monkeypatch.setattr(device_count, "BLOCK_BYTES", 64 << 10)
+    results = {}
+    for name, counter in (("card", "auto"), ("host", "host")):
+        cfg = CallConfig(genomes=genomes, first_pairs=[r1], second_pairs=[r2],
+                         output=str(tmp_path / name), output_pileup=True, batch_size=4096,
+                         counter=counter)
+        (results[name],) = run_call(cfg, index, build_device_index(index, gpu))
+    assert results["card"].counts["device_counted"] == 2
+    assert results["card"].counts["count_parts"] == counters["count_parts"]
+    assert "counted on the host" not in caplog.text
+    assert results["card"].best == results["host"].best
+    np.testing.assert_array_equal(results["card"].tallies, results["host"].tallies)
+    np.testing.assert_array_equal(results["card"].pileup, results["host"].pileup)
+    files = sorted(os.listdir(tmp_path / "host"))
+    assert len(files) == 3 and files == sorted(os.listdir(tmp_path / "card"))
+    for f in files:
+        assert open(tmp_path / "card" / f).read() == open(tmp_path / "host" / f).read()
+
+
 @pytest.mark.parametrize("case,path", [
     ("g12", ("words", "saved")), ("polyA9", ("flat", "subindex")),
     ("ungrouped", ("hist", "subindex"))])

@@ -1,16 +1,21 @@
 """A streamed lone sample's mates counted on the card (call/device_count.py)
 on the CPU, through the text pack's plain version: each mate's k-mers,
 counts and CountStats equal the native counter's, case by case of the
-FASTQ the native parser accepts, drops or refuses; the card's count or
-the host's is decided once a mate, before the copy; the gate keeps the
-host count under --counter host, on a CPU device, for a mate past the
-card's budget and for a classic sample, and the streamed run counted on
-the card writes the host count's files. Every comparison is exact. The
-CPU stands in for the card where a test patches `usable` and `budget`."""
+FASTQ the native parser accepts, drops or refuses, whole or in parts
+(records cut at every offset of a part's end, the floor and the cap
+reached only across parts, the parts' merge against its plain version);
+the card's count or the host's is decided a part at a time, before its
+copy; the gate keeps the host count under --counter host, on a CPU
+device, for a mate past the card's budget and for a classic sample, and
+the streamed run counted on the card, whole or in parts, writes the host
+count's files. Every comparison is exact. The CPU stands in for the card
+where a test patches `usable` and `budget`."""
 
 import gzip
 import logging
 import os
+import sys
+import threading
 from dataclasses import asdict
 
 import numpy as np
@@ -25,7 +30,9 @@ from bronko_tpu_torch.consts import KMER_COUNT_CAP  # noqa: E402
 from bronko_tpu_torch.index.build import build_index  # noqa: E402
 from bronko_tpu_torch.index.layout import build_device_index  # noqa: E402
 from bronko_tpu_torch.io import native  # noqa: E402
-from bronko_tpu_torch.ops.count import count_words, fastq_pack, fastq_pack_plain  # noqa: E402
+from bronko_tpu_torch.ops.count import (  # noqa: E402
+    count_words, fastq_pack, fastq_pack_plain, fastq_records_end, merge_runs, merge_runs_plain,
+)
 from tests.make_synthetic import make_genome, make_sample, write_fasta, write_fastq  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -107,6 +114,37 @@ def cpu_card(monkeypatch):
     _as_card(monkeypatch)
 
 
+def _staged(path):
+    """The whole text of `path` (within one part) staged: its host blocks."""
+    blocks, ends, _ = next(device_count.stage_parts(path))
+    assert ends
+    return blocks
+
+
+def _in_parts(monkeypatch, part_bytes: int, block_bytes: int | None = None) -> None:
+    """Mates counted on the card in parts of `part_bytes` text bytes."""
+    monkeypatch.setattr(device_count, "BLOCK_BYTES", block_bytes or part_bytes)
+    monkeypatch.setattr(device_count, "PART_BYTES", part_bytes)
+
+
+def _card_count(path, k=21, count_cap=KMER_COUNT_CAP, counters=None):
+    """count_mates of one mate, which the card counts: (k-mers, counts, stats)."""
+    counters = {} if counters is None else counters
+    (got,) = list(device_count.count_mates([path], k, MIN_KMERS, count_cap, CPU, threads=2,
+                                           counters=counters))
+    assert counters["device_counted"] == 1
+    return got
+
+
+def _assert_native(got, path, k=21, count_cap=KMER_COUNT_CAP):
+    kmers, counts, stats = got
+    want_k, want_c, want_st = native.native_count_fastq(path, k, MIN_KMERS, count_cap,
+                                                        threads=2)
+    np.testing.assert_array_equal(kmers.numpy(), want_k.view(np.int64))
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    assert counts.dtype == torch.int32 and stats == want_st
+
+
 @pytest.mark.parametrize("k", [19, 21])
 @pytest.mark.parametrize("case", CASES)
 def test_device_count_plain_equals_the_native_count(tmp_path, cpu_card, case, k):
@@ -115,7 +153,7 @@ def test_device_count_plain_equals_the_native_count(tmp_path, cpu_card, case, k)
     native_count_fastq, the whole text staged byte for byte."""
     text = _text("mixed" if case in ("multi_member", "plain") else case)
     path = _write(tmp_path / "m.fastq.gz", text, case)
-    got = device_count.upload_text(device_count.stage_text(path)[0], CPU)
+    got = device_count.upload_text(_staged(path), CPU)
     assert bytes(got.numpy()) == text
     words, reads, malformed = fastq_pack(got, k)
     assert not malformed
@@ -144,8 +182,7 @@ def test_a_header_without_at_raises_as_the_native_count(tmp_path, cpu_card, wher
     else:
         recs.append("\n")
     path = _write(tmp_path / "bad.fastq.gz", "".join(recs).encode(), "gzip")
-    assert fastq_pack_plain(device_count.upload_text(device_count.stage_text(path)[0], CPU),
-                            21)[2]
+    assert fastq_pack_plain(device_count.upload_text(_staged(path), CPU), 21)[2]
     with pytest.raises(ValueError, match="malformed FASTQ: " + str(path)):
         native.native_count_fastq(path, 21, MIN_KMERS, KMER_COUNT_CAP, threads=2)
     with pytest.raises(ValueError, match="malformed FASTQ: " + str(path)):
@@ -160,7 +197,7 @@ def test_staging_spans_many_blocks(tmp_path, monkeypatch, case):
     monkeypatch.setattr(device_count, "BLOCK_BYTES", 64)
     text = _text("mixed")
     path = _write(tmp_path / "m.fastq.gz", text, case)
-    blocks, _ = device_count.stage_text(path)
+    blocks = _staged(path)
     assert len(blocks) == -(-len(text) // 64) and all(b.numel() == 64 for b in blocks[:-1])
     got = device_count.upload_text(blocks, CPU)
     assert bytes(got.numpy()) == text
@@ -173,17 +210,22 @@ def test_staging_spans_many_blocks(tmp_path, monkeypatch, case):
     assert not malformed and asdict(stats) == want_st
 
 
-@pytest.mark.parametrize("why", ["past_cap", "past_budget", "missing", "corrupt"])
+@pytest.mark.parametrize("why", ["later_part_past_budget", "past_budget", "missing",
+                                 "corrupt"])
 def test_a_mate_the_card_does_not_take_is_counted_by_the_host(tmp_path, cpu_card, monkeypatch,
                                                               caplog, why):
-    """Past the whole-buffer cap or the card's budget the mate is counted by
-    the host, as native_count_fastq_stream counts it, with a warning; a
-    missing file and a gzip cut short raise the host count's own
-    errors."""
+    """A mate whose text, or a later part of it after the card counted the
+    first, is past the card's budget is counted by the host, as
+    native_count_fastq_stream counts it, with a warning; a missing file
+    and a gzip cut short raise the host count's own errors."""
     text = _text("mixed")
     path = _write(tmp_path / "m.fastq.gz", text, "gzip")
-    if why == "past_cap":
-        monkeypatch.setenv("BRONKO_WHOLEBUF_MAX", "0")
+    if why == "later_part_past_budget":
+        _in_parts(monkeypatch, len(text) // 4)
+        asked = []
+        monkeypatch.setattr(device_count, "budget",
+                            lambda device: 0 if asked.append(device) or len(asked) > 1
+                            else 1 << 40)
     elif why == "past_budget":
         monkeypatch.setattr(device_count, "budget",
                             lambda device: device_count.BYTES_PER_TEXT_BYTE * len(text) - 1)
@@ -218,6 +260,8 @@ def test_a_mate_the_card_does_not_take_is_counted_by_the_host(tmp_path, cpu_card
         assert gs == ws
     assert counters == {"piped": 1, "device_counted": 0}
     assert f"{path} is counted on the host, not on the card" in caplog.text
+    if why == "later_part_past_budget":
+        assert len(asked) == 2
 
 
 def test_the_card_or_the_host_is_decided_once_a_mate_before_the_copy(tmp_path, monkeypatch,
@@ -246,7 +290,7 @@ def test_the_card_or_the_host_is_decided_once_a_mate_before_the_copy(tmp_path, m
     got = list(device_count.count_mates([p1, p2], 21, MIN_KMERS, KMER_COUNT_CAP, CPU,
                                         threads=2, counters=counters))
     assert len(asked) == 2 and packed == [len(t1)]
-    assert counters == {"piped": 1, "device_counted": 1}
+    assert counters == {"piped": 1, "device_counted": 1, "count_parts": 1}
     assert len(got) == 1 + native.NATIVE_COUNT_PARTS
     assert caplog.text.count("is counted on the host") == 1 and p2 in caplog.text
     kmers, counts, stats = got[0]
@@ -255,6 +299,159 @@ def test_the_card_or_the_host_is_decided_once_a_mate_before_the_copy(tmp_path, m
     np.testing.assert_array_equal(kmers.numpy(), want_k.view(np.int64))
     np.testing.assert_array_equal(counts.numpy(), want_c)
     assert stats == want_st
+
+
+def _fixed_records(n: int, seed: int = 7, read_len: int = 40) -> tuple[bytes, int]:
+    """n records of one length each (reads from one 120-base stretch, so
+    that k-mers pass the floor): the text and a record's bytes."""
+    rng = np.random.default_rng(seed)
+    core = "".join(rng.choice(list("ACGT"), 120))
+    recs = []
+    for i in range(n):
+        s = int(rng.integers(0, 120 - read_len))
+        recs.append(f"@r{i:04d}\n{core[s:s + read_len]}\n+\n{'I' * read_len}\n")
+    return "".join(recs).encode(), len(recs[0])
+
+
+@pytest.mark.parametrize("k", [19, 21])
+def test_parts_cut_at_every_offset_of_a_record_equal_the_native_count(tmp_path, cpu_card,
+                                                                      monkeypatch, k):
+    """A mate of records of one length, counted in parts whose ends fall at
+    every offset of a record (header, sequence, '+' and quality lines,
+    each newline): the k-mers, counts and all four stats of
+    native_count_fastq, in as many parts as the text takes."""
+    text, rec = _fixed_records(40)
+    path = _write(tmp_path / "m.fastq.gz", text, "gzip")
+    for part in range(2 * rec, 3 * rec):
+        _in_parts(monkeypatch, part)
+        counters = {}
+        _assert_native(_card_count(path, k, counters=counters), path, k)
+        assert counters["count_parts"] > 1
+
+
+PART_CASES = ("n_bases", "crlf", "short_reads", "no_final_newline", "truncated",
+              "truncated_sequence", "mixed", "multi_member", "plain")
+
+
+@pytest.mark.parametrize("part", [97, 256, 1000])
+@pytest.mark.parametrize("case", PART_CASES)
+def test_a_mate_counted_in_parts_equals_the_native_count(tmp_path, cpu_card, monkeypatch,
+                                                         case, part):
+    """Each case of FASTQ (CRLF, N bases, short and empty reads, a last
+    record cut short or without its final newline, multi-member gzip,
+    plain text) counted in parts of `part` text bytes: the k-mers, counts
+    and all four stats of native_count_fastq; a part shorter than a record
+    carries the whole part into the next."""
+    text = _text("mixed" if case in ("multi_member", "plain") else case)
+    path = _write(tmp_path / "m.fastq.gz", text, case)
+    _in_parts(monkeypatch, part)
+    counters = {}
+    _assert_native(_card_count(path, counters=counters), path)
+    assert counters["count_parts"] == len(text) // part + 1
+
+
+@pytest.mark.parametrize("across", ["floor", "cap"])
+def test_the_floor_and_the_cap_apply_to_the_sum_over_parts(tmp_path, cpu_card, monkeypatch,
+                                                           across):
+    """A k-mer counted 2 times in each of two parts passes the floor of 3
+    only in the merge; one counted 3 times in each reaches a cap of 5 only
+    there: both as native_count_fastq counts the whole text."""
+    seen = 2 if across == "floor" else 3
+    cap = KMER_COUNT_CAP if across == "floor" else 5
+    marker = "GATTACAGATTACAGATTACAG"  # one 21-mer and the 22-mer around it
+    text, rec = _fixed_records(8, read_len=22)
+    lone = "".join(f"@m{i:03d}\n{marker}\n+\n{'I' * 22}\n" for i in range(seen))
+    text = (lone + text.decode() + lone).encode()
+    path = _write(tmp_path / "m.fastq.gz", text, "gzip")
+    _in_parts(monkeypatch, len(text) // 2 + 1)
+    counters = {}
+    kmers, counts, stats = _card_count(path, count_cap=cap, counters=counters)
+    _assert_native((kmers, counts, stats), path, count_cap=cap)
+    assert counters["count_parts"] == 2
+    word = 0
+    for b in marker[:21]:
+        word = word << 2 | "ACGT".index(b)
+    at = int(torch.searchsorted(kmers, word))
+    assert int(kmers[at]) == word and int(counts[at]) == min(2 * seen, cap)
+    whole = {}
+    _in_parts(monkeypatch, 1 << 20)
+    wk, wc, _ = _card_count(path, count_cap=cap, counters=whole)
+    assert whole["count_parts"] == 1
+    assert torch.equal(wk, kmers) and torch.equal(wc, counts)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_the_merge_of_parts_equals_its_plain_version(seed):
+    """merge_runs against merge_runs_plain (and both against one count of
+    all the windows) on random runs of 1-5 parts, k-mers shared across
+    parts and counts near the floor and the cap."""
+    rng = np.random.default_rng(seed)
+    words = torch.from_numpy(rng.integers(0, 60, int(rng.integers(1, 400))).astype(np.int64))
+    cut = sorted(rng.integers(0, words.numel() + 1, int(rng.integers(0, 5))).tolist())
+    runs = [torch.unique(p, sorted=True, return_counts=True)
+            for p in torch.tensor_split(words, cut)]
+    for min_count, cap in ((3, KMER_COUNT_CAP), (2, 6), (1, 1)):
+        got = merge_runs(runs, min_count, cap)
+        want = merge_runs_plain(runs, min_count, cap)
+        whole = count_words(words, 0, min_count, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2] == want[2] == whole[2].unique_kmers
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1].to(torch.int32), whole[1])
+
+
+@pytest.mark.parametrize("tail", ["", "@r", "@r\nAC", "@r\nACGT\n+\n", "@r\nACGT\n+\nII"])
+def test_records_end_after_the_last_whole_record(tail):
+    """fastq_records_end: the bytes up to the newline ending the last
+    record's quality line; 0 when no record is whole."""
+    whole = "@a\nACGT\n+\nIIII\n@b\nAC\n+\nII\n"
+    for head in ("", whole):
+        text = torch.tensor(list((head + tail).encode()), dtype=torch.uint8)
+        assert fastq_records_end(text) == len(head)
+
+
+def test_parts_of_many_mates_stay_within_the_parts_in_flight(tmp_path, cpu_card, monkeypatch):
+    """Six mates staged on helper threads at once, in parts of 256 bytes,
+    with the interpreter switching threads every microsecond: each mate's
+    count equals native_count_fastq, no mate ever has more than
+    PARTS_IN_FLIGHT parts staged and not yet counted, and a consumer that
+    stops after the first mate leaves no helper running."""
+    paths = [_write(tmp_path / f"m{i}.fastq.gz", _text("mixed" if i % 2 else "n_bases"),
+                    "gzip") for i in range(6)]
+    _in_parts(monkeypatch, 256)
+    lock, staged, worst = threading.Lock(), {}, [0]
+    stage, count = device_count.stage_parts, device_count._count_part
+
+    def staging(path):
+        for part in stage(path):
+            with lock:
+                staged[path] = staged.get(path, 0) + 1
+                worst[0] = max(worst[0], staged[path])
+            yield part
+
+    def counting(mate, *args):
+        with lock:
+            staged[mate.path] -= 1
+        return count(mate, *args)
+
+    monkeypatch.setattr(device_count, "stage_parts", staging)
+    monkeypatch.setattr(device_count, "_count_part", counting)
+    before = threading.active_count()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        counters = {}
+        got = list(device_count.count_mates(paths, 21, MIN_KMERS, KMER_COUNT_CAP, CPU,
+                                            threads=2, counters=counters))
+        gen = device_count.count_mates(paths, 21, MIN_KMERS, KMER_COUNT_CAP, CPU, threads=2)
+        next(gen)
+        gen.close()
+    finally:
+        sys.setswitchinterval(interval)
+    assert counters["device_counted"] == 6 and counters["count_parts"] > 6 * 20
+    for g, path in zip(got, paths):
+        _assert_native(g, path)
+    assert 1 <= worst[0] <= device_count.PARTS_IN_FLIGHT
+    assert threading.active_count() == before
 
 
 @pytest.fixture(scope="module")
@@ -297,6 +494,7 @@ GATE_CASES = {  # id: (the CPU taken as a card, budget, env, counter, mates coun
     "cpu_device": (False, 1 << 40, {}, "auto", 0),
     "past_budget": (True, 1, {}, "auto", 0),
     "stream_0": (True, 1 << 40, {"BRONKO_STREAM": "0"}, "auto", 0),
+    "parts": (True, 1 << 40, {}, "auto", 2),  # each mate in parts of 64 KiB
 }
 
 
@@ -304,14 +502,16 @@ GATE_CASES = {  # id: (the CPU taken as a card, budget, env, counter, mates coun
 def test_the_gate_picks_the_count_and_the_files_stay_the_hosts(pair, tmp_path, monkeypatch,
                                                               caplog, case):
     """The streamed pair counted on the card (here the CPU, through the
-    plain pack) writes the host count's VCF, pileup and overview, with
-    its tallies, genome and pileup; --counter host, a CPU device, a
-    budget no mate fits and BRONKO_STREAM=0 (a classic sample) count on
-    the host, device_counted 0."""
+    plain pack), whole or in parts, writes the host count's VCF, pileup
+    and overview, with its tallies, genome and pileup; --counter host, a
+    CPU device, a budget no mate fits and BRONKO_STREAM=0 (a classic
+    sample) count on the host, device_counted 0."""
     card, room, env, counter, on_card = GATE_CASES[case]
     caplog.set_level(logging.INFO, logger="bronko")
     if card:
         _as_card(monkeypatch, room)
+    if case == "parts":
+        _in_parts(monkeypatch, 64 << 10, 16 << 10)
     res, got = _run(pair, tmp_path / "got", monkeypatch, env, counter)
     monkeypatch.undo()
     want_res, want = _run(pair, tmp_path / "want", monkeypatch, {}, "host")
@@ -327,3 +527,8 @@ def test_the_gate_picks_the_count_and_the_files_stay_the_hosts(pair, tmp_path, m
         # mate 2 uploads on the helper; no mate is piped
         assert res.counts["piped"] == 0 and 0 < s["inflate_ahead"] < s["inflate"]
         assert s["parse"] > 0 and s["finalize"] > 0 and s["dispatch"] > 0
+        parts = res.counts["count_parts"]
+        # a mate in one part has its cap and floor in finalize, as a whole text
+        assert (s["merge"] > 0) == (parts > 2) == (case == "parts")
+        assert parts == 2 or case == "parts"
+        assert f"{on_card} on the card in {parts} part(s)" in caplog.text

@@ -161,9 +161,11 @@ def test_counts_follow_the_index_and_the_batch_size(synth, tmp_path, monkeypatch
         (r,) = _run(synth, tmp_path / "o", monkeypatch, 1, env=env)
     s = r.summary
     rows = r.counts["rows"]
-    assert set(r.counts) == {"rows", "batches", "words", "piped", "device_counted"}
+    assert set(r.counts) == {"rows", "batches", "words", "piped", "device_counted",
+                             "count_parts"}
     assert r.counts["piped"] == {"serial": 2, "streamed": 1, "classic": 0}[path]
-    assert r.counts["device_counted"] == 0  # the CPU: the host counts
+    # the CPU: the host counts
+    assert r.counts["device_counted"] == r.counts["count_parts"] == 0
     assert rows == s.n_perfect + s.n_variant + s.n_unmapped > 4096
     least = -(-rows // 4096)
     if path != "streamed":

@@ -18,10 +18,12 @@ lone-sample traffic sets it; 1 opens the parallel inflater's gate):
   parent: with --parent, the `whole` flow of another checkout's native
           library (DIR holds its `bronko_tpu_torch/`);
   device: where a CUDA card is, the streamed lone sample's count on the
-          card (call/device_count.py): the mate read and inflated a block
-          at a time into page-locked memory (`inflate`), its copy to the
-          card and the text pack (`parse`), the sort, run lengths, cap and
-          floor (`finalize`), timed to the card's end of it.
+          card (call/device_count.py::count_mates): the mate read and
+          inflated a block at a time into page-locked memory (`inflate`),
+          each part's copy to the card and the text pack (`parse`), the
+          sort and run lengths, and for one part the cap and floor
+          (`finalize`), past one part the parts' merge (`merge`), timed
+          to the card's end of it.
 
 Each count's k-mers, counts and stats must equal the first's. Prints
 whether libdeflate loads on this host (the whole buffer's serial inflate
@@ -131,29 +133,22 @@ def card_name() -> str | None:
 
 
 def count_on_card(path: str, seconds: dict):
-    """The device flow: ((k-mers u64, counts int64, stats) on the host,
-    the wall seconds to the card's end of the count)."""
-    from dataclasses import asdict
-
+    """The device flow, device_count.count_mates of the one mate: ((k-mers
+    u64, counts int64, stats) on the host, the wall seconds to the card's
+    end of the count); its spans' seconds (inflate, parse, finalize and,
+    past one part, merge) go into `seconds`."""
     import torch
 
     from bronko_tpu_torch.call import device_count
-    from bronko_tpu_torch.ops.count import count_words, fastq_pack
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    blocks, _ = device_count.stage_text(path)
-    t1 = time.perf_counter()
-    words, reads, malformed = fastq_pack(device_count.upload_text(blocks, device), 21)
-    assert not malformed
-    t2 = time.perf_counter()
-    kmers, counts, stats = count_words(words, reads, 3, 1_000_000)
+    (got,) = device_count.count_mates([path], 21, 3, 1_000_000, device, seconds=seconds)
     torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    seconds.update(inflate=t1 - t0, parse=t2 - t1, finalize=t3 - t2)
-    got = (kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().astype(np.int64),
-           asdict(stats))
-    return got, t3 - t0
+    took = time.perf_counter() - t0
+    kmers, counts, stats = got
+    return (kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().astype(np.int64),
+            stats), took
 
 
 def main() -> int:
